@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in the checkout, holds each
-kernel against its plain PyTorch version on the card, drives the main path
-(VAR-d30 256px class-conditional generation, B=16, bf16, random weights
-from a seed) as a server answering a few requests, checks the outputs, and
-times the kernels. The last stdout line is
+kernel against its plain PyTorch version on the card, drives the main paths
+(VAR-d30 256px class-conditional generation, B=16, random weights from a
+seed, as a server answering a few requests): in bf16, and quantized, with
+W8A8 weights and an INT8 KV cache (the JAX package's headline
+configuration), then weight-only INT8; checks the outputs, holds small
+stacks on the card against the CPU plain path, and times the kernels. The
+last stdout line is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the script
 exits non-zero without printing it. It needs a CUDA card and the
 ``sdvar_tpu_torch`` package beside it, and imports nothing of JAX.
@@ -16,6 +19,7 @@ exits non-zero without printing it. It needs a CUDA card and the
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -27,12 +31,28 @@ from sdvar_tpu_torch.engine.decode import decode_all_scales, generate_images
 from sdvar_tpu_torch.models.var import init_var_params
 from sdvar_tpu_torch.models.vqvae import fhat_to_img, init_vqvae_params
 from sdvar_tpu_torch.ops.kernels import _build
+from sdvar_tpu_torch.models.var import apply_transformer, get_logits
 from sdvar_tpu_torch.ops.kernels.attention import (
     attention_kernel,
     attention_plain,
     smem_bytes,
 )
+from sdvar_tpu_torch.ops.kernels.matmul_int8 import (
+    int8_matmul_kernel,
+    int8_matmul_plain,
+)
+from sdvar_tpu_torch.ops.kernels.quantize import (
+    act_quantize_kernel,
+    act_quantize_plain,
+)
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
+from sdvar_tpu_torch.ops.quantization import (
+    QuantizedKVCache,
+    dequantize_tokens,
+    dequantize_weight,
+    quantize_var_params,
+    quantize_weight,
+)
 from sdvar_tpu_torch.utils.device import full_f32
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
@@ -44,8 +64,11 @@ F32_FLOPS = 67e12
 INT32_OPS = 64 * 132 * 1.98e9
 
 B = 16             # requests per batch (2B = 32 rows under CFG)
+B_LARGE = 32       # the batch bench.py tries first for the quantized decode
 N_BATCHES = 3
 DEPTH = 30
+DEV = "cuda"
+PNS = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
 
 
 def log(*a):
@@ -92,6 +115,36 @@ def sampler_bound(M, V, n_topk):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def act_quantize_bound(M, K, gelu):
+    """(bound ms, bound_by): x and the bias (bf16, with GELU) read once, the
+    int8 values and f32 scales written once, vs the function's f32
+    operations per element: bias, the tanh-GELU polynomial and tanh (10),
+    amax (2), divide and round (2); without GELU or bias 4."""
+    nbytes = M * K * (2 + 1) + M * 4 + (K * 2 if gelu else 0)
+    ops = M * K * (14 if gelu else 4)
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_matmul_bound(M, K, N, x_itemsize, out_itemsize):
+    """(bound ms, bound_by): x, the int8 weights and the scales read once,
+    the output written once, vs 2*M*K*N FLOPs at the peak of x's type."""
+    nbytes = M * K * x_itemsize + K * N + N * 4 + M * N * out_itemsize
+    peak = BF16_FLOPS if x_itemsize == 2 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, 2 * M * K * N / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_int8_bound(Bq, Lq, Lk, H, hd):
+    """(bound ms, bound_by): bf16 q and o, int8 k and v and their f32
+    per-token scales moved once, vs 4*B*H*Lq*Lk*hd FLOPs at the bf16
+    peak."""
+    nbytes = 2 * H * hd * Bq * 2 * Lq + H * hd * Bq * 2 * Lk + 2 * Bq * Lk * 4
+    flops = 4 * Bq * H * Lq * Lk * hd
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_device_and_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,11 +154,14 @@ def phase_device_and_build():
     log(f"[device] torch: {name}, {torch.cuda.device_count()} card(s), "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    _build.build(["attention"])
-    log(f"[build] csrc/attention.cu built in {time.time() - t0:.1f} s")
-    for line in _build.build_log("attention").splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "Compiling")):
-            log(f"[build] {line.strip()}")
+    _build.build(["attention", "matmul_int8"])  # one nvcc each, together
+    log(f"[build] csrc/attention.cu and csrc/matmul_int8.cu built in "
+        f"{time.time() - t0:.1f} s")
+    for src in ("attention", "matmul_int8"):
+        for line in _build.build_log(src).splitlines():
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "Compiling")):
+                log(f"[build] {src}: {line.strip()}")
     log("[build] attention shared memory per block: " + ", ".join(
         f"{str(dt)[6:]} hd={hd}: {smem_bytes(hd, dt)} B"
         for dt in (torch.bfloat16, torch.float32) for hd in (32, 64, 128)))
@@ -182,6 +238,251 @@ def phase_kernel_checks():
         smp[(top_k, top_p)] = ((mask.int() - mask_p.int()).abs().max().item(),
                                rows, hashed)
     return errs, smp
+
+
+def _log_uniform(shape, lo, hi, g):
+    """Scales far from 1: log-uniform in [lo, hi]."""
+    u = torch.rand(shape, device=DEV, generator=g)
+    return torch.exp(math.log(lo) + u * (math.log(hi) - math.log(lo)))
+
+
+def _int8_cache(Bq, Lmax, C, g):
+    """An int8 (2, Bq, Lmax, C) K/V cache of one layer and its (2, Bq,
+    Lmax) f32 scale planes, scales log-uniform in [1e-3, 1e2]."""
+    vals = torch.randint(-127, 128, (2, Bq, Lmax, C), device=DEV, generator=g,
+                         dtype=torch.int8)
+    return vals, _log_uniform((2, Bq, Lmax), 1e-3, 1e2, g)
+
+
+def _int8_kv(vals, scales, Lk, H, hd):
+    """k, v and (ks, vs) as strided slices [0, Lk) of the cache, as the
+    main path hands them to the kernel."""
+    Bq = vals.shape[1]
+    return (vals[0, :, :Lk].view(Bq, Lk, H, hd), vals[1, :, :Lk].view(Bq, Lk, H, hd),
+            (scales[0, :, :Lk], scales[1, :, :Lk]))
+
+
+def phase_quant_kernel_checks():
+    """The three kernels of the quantized path against their plain versions
+    at main-path shapes. Tolerances: INT8-KV attention f32 1e-4 and bf16
+    2e-2 of the output's size (bf16: p * vs and o round once each); act
+    quantization scales 1e-6 relative and |dq| <= 1 on fewer than 1e-3 of
+    the elements (libdevice tanh against PyTorch's); INT8-weight matmul f32
+    1e-5 of the output's size (the f32 sum's order), bf16 2^-7 (one
+    rounding of the output is up to 2^-8 of the largest one's binade, plus
+    the sum's order)."""
+    g = torch.Generator(device=DEV).manual_seed(2)
+    Bq, H, hd, Lmax = 2 * B, DEPTH, 64, 680
+    errs = {}
+    vals, scales = _int8_cache(Bq, Lmax, H * hd, g)
+    for dtype in (torch.bfloat16, torch.float32):
+        for Lq, Lk in ((1, 1), (64, 155), (169, 424), (256, 680)):
+            q = (torch.randn(Bq, Lq, H, hd, device=DEV, generator=g) * 1e-3).to(dtype)
+            k, v, kv_scales = _int8_kv(vals, scales, Lk, H, hd)
+            got = attention_kernel(q, k, v, None, 1.0, kv_scales=kv_scales).float()
+            torch.cuda.synchronize()
+            want = attention_plain(q, k, v, None, 1.0, kv_scales=kv_scales).float()
+            err = (got - want).abs().max().item()
+            lim = (1e-4 if dtype == torch.float32 else 2e-2) * want.abs().max().item()
+            ok = err <= lim
+            log(f"[check] attention_int8 {str(dtype)[6:]} Lq={Lq} Lk={Lk}: "
+                f"max|d|={err:.3e} (limit {lim:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"INT8-KV attention disagrees at {Lq}x{Lk}")
+            errs[("attention_int8", dtype, Lq, Lk)] = err
+    # additive bias with -inf entries and one fully masked row, f32
+    Lq, Lk = 100, 255
+    q = torch.randn(Bq, Lq, H, hd, device=DEV, generator=g) * 1e-3
+    k, v, kv_scales = _int8_kv(vals, scales, Lk, H, hd)
+    bias = torch.randn(Lq, Lk, device=DEV, generator=g)
+    bias[:, ::3] = float("-inf")
+    bias[-1] = float("-inf")
+    got = attention_kernel(q, k, v, bias, 1.0, kv_scales=kv_scales)
+    want = attention_plain(q, k, v, bias, 1.0, kv_scales=kv_scales)
+    err = (got - want).abs().max().item()
+    ok = (err <= 1e-4 * want.abs().max().item() and not got[:, -1].any()
+          and bool(torch.isfinite(got).all()))
+    log(f"[check] attention_int8 f32 with -inf bias and a masked row: "
+        f"max|d|={err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("INT8-KV attention disagrees under a bias")
+
+    M = 2 * B * 256
+    for K, gelu in ((7680, True), (1920, False)):
+        x = (torch.randn(M, K, device=DEV, generator=g) * 3).to(torch.bfloat16)
+        bias = (torch.randn(K, device=DEV, generator=g).to(torch.bfloat16)
+                if gelu else None)  # bf16, as the main path's fc1_b
+        q8, s8 = act_quantize_kernel(x, bias, gelu)
+        torch.cuda.synchronize()
+        qp, sp = act_quantize_plain(x, bias, gelu)
+        s_rel = ((s8 - sp).abs() / sp).max().item()
+        d = (q8.int() - qp.int()).abs()
+        frac = (d != 0).float().mean().item()
+        ok = s_rel <= 1e-6 and d.max().item() <= 1 and frac < 1e-3
+        log(f"[check] act_quantize M={M} K={K} gelu={gelu}: scales max rel "
+            f"{s_rel:.3e}, |dq|<=1 {d.max().item() <= 1}, dq != 0 on "
+            f"{frac:.2e} of elements {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"act_quantize kernel disagrees at K={K}")
+        errs[("act_quantize", K)] = float(d.max().item())
+
+    for x_dtype, N in ((torch.bfloat16, 7680), (torch.float32, 4096)):
+        K = 1920
+        x = torch.randn(M, K, device=DEV, generator=g).to(x_dtype)
+        qw = quantize_weight(torch.randn(K, N, device=DEV, generator=g) * 0.02)
+        got = int8_matmul_kernel(x, qw.q, qw.scale).float()
+        torch.cuda.synchronize()
+        want = int8_matmul_plain(x.float(), qw.q, qw.scale)  # x widens exactly
+        err = (got - want).abs().max().item()
+        lim = (2 ** -7 if x_dtype == torch.bfloat16 else 1e-5) * want.abs().max().item()
+        ok = err <= lim
+        log(f"[check] int8_matmul {str(x_dtype)[6:]} M={M} K={K} N={N}: "
+            f"max|d|={err:.3e} (limit {lim:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"int8_matmul kernel disagrees for {x_dtype}")
+        errs[("int8_matmul", x_dtype)] = err
+    return errs
+
+
+def _reset_counts():
+    attention_kernel.launches = attention_kernel.launches_int8 = 0
+    act_quantize_kernel.launches = int8_matmul_kernel.launches = 0
+    sample_kernel.launches = 0
+
+
+def _read_counts():
+    return {"attention": attention_kernel.launches,
+            "attention_int8": attention_kernel.launches_int8,
+            "act_quantize": act_quantize_kernel.launches,
+            "int8_matmul": int8_matmul_kernel.launches,
+            "sampler": sample_kernel.launches}
+
+
+def _time_decodes(name, var_cfg, vae_cfg, params, vae, samp, batch, kv_mode,
+                  pixels, tag):
+    """Best of 3 latent decodes (and pixel decodes), every run printed."""
+    labels = torch.arange(batch) * 37 % 1000
+    torch.cuda.reset_peak_memory_stats()
+    lat, pix = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        f_hat = decode_all_scales(var_cfg, vae_cfg, params, vae["quant"],
+                                  labels, 20 + i, samp, kv_mode=kv_mode)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        lat.append((t1 - t0) * 1e3)
+        if pixels:
+            with torch.inference_mode():
+                fhat_to_img(vae_cfg, vae, f_hat)
+            torch.cuda.synchronize()
+            pix.append((time.time() - t1) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line = (f"[{tag}] {name}: B={batch} latent decode {min(lat):.1f} ms "
+            f"(runs {', '.join(f'{t:.1f}' for t in lat)})")
+    if pixels:
+        line += (f", pixel decode {min(pix):.1f} ms (runs "
+                 f"{', '.join(f'{t:.1f}' for t in pix)}), "
+                 f"{batch / ((min(lat) + min(pix)) / 1e3):.2f} img/s")
+    log(f"{line}, peak memory {peak:.2f} GiB")
+
+
+def _quantized_var(var_cfg, mode):
+    """VAR-d30 from the seed of the bf16 path, quantized; the replaced bf16
+    weights go as the float tree is dropped."""
+    params = quantize_var_params(
+        init_var_params(var_cfg, seed=0, device=DEV, dtype=torch.bfloat16),
+        mode=mode)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return params
+
+
+def phase_quant_path(name):
+    """W8A8 weights + INT8 KV cache (the JAX package's headline
+    configuration, bench.py), then weight-only INT8 weights."""
+    var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    t0 = time.time()
+    params = _quantized_var(var_cfg, "w8a8")
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[quant] VAR-d{DEPTH} w8a8 ({nbytes / 2 ** 30:.2f} GiB of "
+        f"parameters) quantized on the card in {time.time() - t0:.1f} s, "
+        f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    labels = [torch.arange(B) * 61 % 1000, torch.arange(B) * 7 + 100,
+              torch.full((B,), 207)]
+    # warm-up (Triton compiles the act-quant specialisations here)
+    generate_images(var_cfg, vae_cfg, params, vae, labels[0], 0, samp,
+                    kv_mode="int8")
+    torch.cuda.synchronize()
+
+    _reset_counts()
+    imgs = []
+    for lab, seed in zip(labels, (1, 2, 3)):
+        t0 = time.time()
+        img = generate_images(var_cfg, vae_cfg, params, vae, lab, seed, samp,
+                              kv_mode="int8")
+        torch.cuda.synchronize()
+        imgs.append(img)
+        log(f"[quant] w8a8 + int8 KV request batch seed={seed}: "
+            f"{tuple(img.shape)} in {(time.time() - t0) * 1e3:.1f} ms")
+    launches = _read_counts()
+    log(f"[quant] kernel launches over {N_BATCHES} w8a8 + int8-KV decodes: "
+        f"{launches}")
+    # per decode and layer of each of the 10 scales: one attention and four
+    # activation quantizations (qkv, proj and fc1 inputs, fused fc2 input);
+    # per scale one head matmul and one sampler launch: 300/1200/10/10
+    S = len(PNS)
+    want = {"attention": 0, "attention_int8": S * DEPTH * N_BATCHES,
+            "act_quantize": 4 * S * DEPTH * N_BATCHES,
+            "int8_matmul": S * N_BATCHES, "sampler": S * N_BATCHES}
+    if launches != want:
+        raise AssertionError(f"w8a8 path launch counts {launches} != {want}")
+    for img in imgs:
+        if img.shape != (B, 3, 256, 256) or not torch.isfinite(img).all() \
+                or img.min() < 0 or img.max() > 1:
+            raise AssertionError(f"bad images: {tuple(img.shape)} "
+                                 f"[{img.min().item()}, {img.max().item()}]")
+    log(f"[quant] images finite, in [0, 1], shape ({B}, 3, 256, 256)")
+    ids = [decode_all_scales(var_cfg, vae_cfg, params, vae["quant"], labels[0],
+                             s, samp, return_ids=True, kv_mode="int8")[1]
+           for s in (5, 5, 6)]
+    if not torch.equal(ids[0], ids[1]) or torch.equal(ids[0], ids[2]):
+        raise AssertionError("same seed must give the same ids, another "
+                             "seed other ids")
+    log(f"[quant] seed 5 twice: identical ids; seed 6: "
+        f"{(ids[0] != ids[2]).float().mean().item():.3f} of ids differ")
+    _time_decodes(name, var_cfg, vae_cfg, params, vae, samp, B, "int8", True,
+                  "quant w8a8 + int8 KV")
+    decode_all_scales(var_cfg, vae_cfg, params, vae["quant"],
+                      torch.arange(B_LARGE), 0, samp, kv_mode="int8")
+    _time_decodes(name, var_cfg, vae_cfg, params, vae, samp, B_LARGE, "int8",
+                  False, "quant w8a8 + int8 KV")
+    del params
+    torch.cuda.empty_cache()
+
+    params = _quantized_var(var_cfg, "w8")
+    decode_all_scales(var_cfg, vae_cfg, params, vae["quant"], labels[0], 0,
+                      samp, kv_mode="int8")
+    torch.cuda.synchronize()
+    _reset_counts()
+    decode_all_scales(var_cfg, vae_cfg, params, vae["quant"], labels[1], 1,
+                      samp, kv_mode="int8")
+    torch.cuda.synchronize()
+    w8 = _read_counts()
+    log(f"[quant] kernel launches over one w8 + int8-KV decode: {w8}")
+    # four block matmuls per layer and the head: 1200 + 10
+    want = {"attention": 0, "attention_int8": S * DEPTH, "act_quantize": 0,
+            "int8_matmul": 4 * S * DEPTH + S, "sampler": S}
+    if w8 != want:
+        raise AssertionError(f"w8 path launch counts {w8} != {want}")
+    _time_decodes(name, var_cfg, vae_cfg, params, vae, samp, B, "int8", False,
+                  "quant w8 + int8 KV")
+    del params, vae
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ("attention_int8", "act_quantize",
+                                     "int8_matmul")}
 
 
 def phase_main_path(name):
@@ -285,6 +586,60 @@ def phase_small_reference():
         raise AssertionError("card path disagrees with the CPU reference")
 
 
+def phase_small_reference_quant():
+    """The quantized CUDA path (w8a8 weights, INT8 KV cache, f32) against
+    the CPU plain path on the small stack of ``phase_small_reference``:
+    the logits of one cached forward over every scale within 1e-5 of their
+    size, and equal greedy ids. The two compute the same quantized function
+    and differ only in the order of f32 sums and in tanh's last bit, which
+    moves a logit by about 1e-7 of its size; an activation that quantizes
+    one int8 step apart (a rounding tie that flips) would move it by about
+    1e-3 and fails the check, and the failure names the first token whose
+    id differs and its scale."""
+    pns = (1, 2, 3)
+    vc = VARConfig(depth=2, num_classes=10, patch_nums=pns, vocab_size=64,
+                   Cvae=8, head_dim=32)
+    qc = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=pns)
+    p = init_var_params(vc, seed=3, device="cpu")
+    p["head"]["w"].normal_(0, 0.05, generator=torch.Generator().manual_seed(4))
+    p = quantize_var_params(p, mode="w8a8")
+    q = init_vqvae_params(qc, seed=4, device="cpu", eini=1.0)
+    gen = torch.Generator().manual_seed(5)
+    cond = torch.randn(4, vc.embed_dim, generator=gen)
+    xs = [torch.randn(4, ed - bg, vc.embed_dim, generator=gen)
+          for bg, ed in vc.begin_ends]
+    out = {}
+    for dev in ("cpu", DEV):
+        pd, qd = _to(p, dev), _to(q, dev)
+        cache = QuantizedKVCache.create(vc, 4, device=dev)
+        logits = []
+        with torch.inference_mode(), full_f32():
+            for (bg, ed), x in zip(vc.begin_ends, xs):
+                h = apply_transformer(vc, pd, x.to(dev), cond.to(dev),
+                                      cache=cache, cache_begin=bg, kv_len=ed)
+                logits.append(get_logits(vc, pd, h, cond.to(dev)).cpu())
+        ids = decode_all_scales(vc, qc, pd, qd["quant"], [3, 7], 0,
+                                SamplingConfig(cfg=1.5, top_k=1), torch.float32,
+                                return_ids=True, kv_mode="int8", device=dev)[1]
+        out[dev] = (torch.cat([lg.flatten() for lg in logits]), ids.cpu())
+    lc, lg = out["cpu"][0], out[DEV][0]
+    rel = ((lc - lg).abs().max() / lc.abs().max()).item()
+    differ = (out["cpu"][1] != out[DEV][1]).nonzero().tolist()
+    log(f"[reference] quantized small stack (w8a8, int8 KV, f32), card vs "
+        f"CPU plain path: logits max|d| / max|ref| {rel:.2e} (limit 1e-5), "
+        f"greedy ids differ at {len(differ)} tokens (need 0)")
+    if differ:
+        row, tok = differ[0]
+        si = next(i for i, (bg, ed) in enumerate(vc.begin_ends) if tok < ed)
+        raise AssertionError(
+            f"quantized greedy ids differ first at row {row}, token {tok} "
+            f"(scale {si}, pn={pns[si]}): CPU {out['cpu'][1][row, tok].item()}"
+            f" vs card {out[DEV][1][row, tok].item()}")
+    if rel > 1e-5:
+        raise AssertionError(f"quantized card logits differ from the CPU "
+                             f"reference by {rel:.2e} of their size")
+
+
 def phase_kernel_times(launches, errs, smp):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -337,6 +692,68 @@ def phase_kernel_times(launches, errs, smp):
         f"{launches['sampler'] // N_BATCHES}; all 10 scales {s_total:.3f} ms "
         f"per decode")
 
+    # INT8-KV attention: int8 cache slices and their scale planes
+    vals, scales = _int8_cache(Bq, Lmax, H * hd, g)
+    per_scale, total8, cur = [], 0.0, 0
+    for pn in PNS:
+        cur += pn * pn
+        q8 = torch.randn(Bq, pn * pn, H, hd, device=dev, generator=g).to(torch.bfloat16)
+        k8, v8, sc8 = _int8_kv(vals, scales, cur, H, hd)
+        ms = cuda_ms(lambda: attention_kernel(q8, k8, v8, None, 1.0, kv_scales=sc8), 20)
+        per_scale.append(f"{pn * pn}x{cur}:{ms * 1e3:.1f}us")
+        total8 += ms * DEPTH
+    log(f"[time] attention_int8 kernel per scale (Lq x Lk: us per launch) "
+        f"{' '.join(per_scale)}; x{DEPTH} layers = {total8:.2f} ms per decode")
+    k8, v8, sc8 = _int8_kv(vals, scales, 680, H, hd)
+    # the library call gets k/v dequantised beforehand, outside the timing
+    kd, vd = (dequantize_tokens(t.reshape(Bq, 680, H * hd), s).view(Bq, 680, H, hd)
+              .transpose(1, 2) for t, s in ((k8, sc8[0]), (v8, sc8[1])))
+    i_ms = cuda_ms(lambda: attention_kernel(q, k8, v8, None, 1.0, kv_scales=sc8), 50)
+    i_plain = cuda_ms(lambda: attention_plain(q, k8, v8, None, 1.0, kv_scales=sc8), 10)
+    i_lib = cuda_ms(lambda: sdpa(qt, kd, vd, scale=1.0), 50)
+    i_bound, i_by = attention_int8_bound(Bq, 256, 680, H, hd)
+    log(f"[time] attention_int8 scale 9 (2B=32 Lq=256 Lk=680 H=30 hd=64 q "
+        f"bf16, k/v int8): kernel_ms {i_ms:.4f} plain_ms {i_plain:.4f} "
+        f"library_ms {i_lib:.4f} (scaled_dot_product_attention on k/v "
+        f"dequantised beforehand, the dequant not timed) bound_ms "
+        f"{i_bound:.4f} ({i_by}) launches/decode "
+        f"{launches['attention_int8'] // N_BATCHES}")
+
+    M = 2 * B * 256
+    x = (torch.randn(M, 7680, device=dev, generator=g) * 3).to(torch.bfloat16)
+    bias = torch.randn(7680, device=dev, generator=g).to(torch.bfloat16)
+    q_ms = cuda_ms(lambda: act_quantize_kernel(x, bias, True), 50)
+    q_plain = cuda_ms(lambda: act_quantize_plain(x, bias, True), 10)
+    q_bound, q_by = act_quantize_bound(M, 7680, True)
+    x1 = x[:, :1920].contiguous()
+    q1_ms = cuda_ms(lambda: act_quantize_kernel(x1, None, False), 50)
+    q1_bound, q1_by = act_quantize_bound(M, 1920, False)
+    log(f"[time] act_quantize scale 9 (M=8192 K=7680 bf16, bias + GELU): "
+        f"kernel_ms {q_ms:.4f} plain_ms {q_plain:.4f} library_ms none "
+        f"bound_ms {q_bound:.4f} ({q_by}) launches/decode "
+        f"{launches['act_quantize'] // N_BATCHES}; K=1920 without GELU "
+        f"kernel_ms {q1_ms:.4f} bound_ms {q1_bound:.4f} ({q1_by})")
+
+    K = 1920
+    mm = {}
+    for x_dtype, N in ((torch.float32, 4096), (torch.bfloat16, 7680)):
+        xm = torch.randn(M, K, device=dev, generator=g).to(x_dtype)
+        qw = quantize_weight(torch.randn(K, N, device=dev, generator=g) * 0.02)
+        wd = dequantize_weight(qw, x_dtype)  # for the library call, untimed
+        m_ms = cuda_ms(lambda: int8_matmul_kernel(xm, qw.q, qw.scale), 20)
+        m_plain = cuda_ms(lambda: int8_matmul_plain(xm, qw.q, qw.scale), 10)
+        m_lib = cuda_ms(lambda: torch.matmul(xm, wd), 20)
+        m_bound, m_by = int8_matmul_bound(M, K, N, xm.element_size(),
+                                          xm.element_size())
+        mm[x_dtype] = (m_ms, m_plain, m_lib, m_bound, m_by)
+        log(f"[time] int8_matmul {str(x_dtype)[6:]} (M=8192 K={K} N={N}, "
+            f"{'the w8a8 head' if N == 4096 else 'the w8 fc1'}): kernel_ms "
+            f"{m_ms:.4f} plain_ms {m_plain:.4f} library_ms {m_lib:.4f} "
+            f"(torch.matmul on the dequantised weight, the dequant not "
+            f"timed) bound_ms {m_bound:.4f} ({m_by})")
+    m_ms, m_plain, m_lib, m_bound, m_by = mm[torch.float32]
+    b_ms, b_plain, b_lib, b_bound, b_by = mm[torch.bfloat16]
+
     kernels = [
         {"name": "attention", "route": "cuda",
          "source": "sdvar_tpu_torch/csrc/attention.cu",
@@ -353,6 +770,30 @@ def phase_kernel_times(launches, errs, smp):
          "rows_equal": smp[(900, 0.96)][1],
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
          "bound_by": s_by, "library_ms": None},
+        {"name": "attention_int8", "route": "cuda",
+         "source": "sdvar_tpu_torch/csrc/attention.cu",
+         "replaces": "sdvar_tpu/ops/pallas/attention.py:54",
+         "launches": launches["attention_int8"],
+         "max_abs_err": errs[("attention_int8", torch.bfloat16, 256, 680)],
+         "ms": i_ms, "plain_ms": i_plain, "bound_ms": i_bound,
+         "bound_by": i_by, "library_ms": i_lib},
+        {"name": "act_quantize", "route": "triton",
+         "source": "sdvar_tpu_torch/ops/kernels/quantize.py",
+         "replaces": "sdvar_tpu/ops/pallas/quantize.py:46",
+         "launches": launches["act_quantize"],
+         "max_abs_err": errs[("act_quantize", 7680)],
+         "ms": q_ms, "plain_ms": q_plain, "bound_ms": q_bound,
+         "bound_by": q_by, "library_ms": None},
+        {"name": "int8_matmul", "route": "cuda",
+         "source": "sdvar_tpu_torch/csrc/matmul_int8.cu",
+         "replaces": "sdvar_tpu/ops/pallas/matmul_int8.py:30",
+         "launches": launches["int8_matmul"],
+         "max_abs_err": errs[("int8_matmul", torch.float32)],
+         "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
+         "bound_by": m_by, "library_ms": m_lib,
+         "bf16_fc1": {"ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
+                      "bound_by": b_by, "library_ms": b_lib,
+                      "max_abs_err": errs[("int8_matmul", torch.bfloat16)]}},
     ]
     return kernels
 
@@ -361,7 +802,7 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, list):
+    elif isinstance(tree, (list, tuple)):  # tuples: the INT8 weight leaves
         for v in tree:
             yield from _leaves(v)
     else:
@@ -373,6 +814,8 @@ def _to(tree, dev):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
+    if isinstance(tree, tuple):  # an INT8 weight leaf keeps its class
+        return type(tree)(*(_to(v, dev) for v in tree))
     return tree.to(dev)
 
 
@@ -383,10 +826,13 @@ def main() -> int:
         return 1
     t_start = time.time()
     name = phase_device_and_build()
-    with full_f32():  # the plain f32 attention's einsums, as the kernel's
+    with full_f32():  # the plain f32 versions' products, as the kernels'
         errs, smp = phase_kernel_checks()
+        errs.update(phase_quant_kernel_checks())
     launches = phase_main_path(name)
+    launches.update(phase_quant_path(name))
     phase_small_reference()
+    phase_small_reference_quant()
     with full_f32():
         kernels = phase_kernel_times(launches, errs, smp)
     log(f"[done] {time.time() - t_start:.1f} s")

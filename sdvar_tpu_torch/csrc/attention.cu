@@ -1,19 +1,29 @@
 // Fused attention for VAR's KV-cached decode, hand-written for Hopper
 // (sm_90a), bound to PyTorch through a plain C function loaded with ctypes.
 //
-// Replaces the TPU kernel sdvar_tpu/ops/pallas/attention.py:_kernel
-// (float-KV branch, reached through _pallas_forward / pallas_attention).
-// Same function:
+// Replaces the TPU kernel sdvar_tpu/ops/pallas/attention.py:_kernel, both
+// branches (reached through _pallas_forward / pallas_attention). Same
+// function:
 //   out = softmax(q k^T * scale + bias) v
 // with the softmax in f32, the running max clamped at -1e30 so that a row
 // whose bias is all -inf gives zeros (not NaN), the probabilities cast to
 // v's type before the PV product (as the TPU kernel does), and the output
 // divided by max(l, 1e-30) AFTER the PV product.
 //
+// INT8-KV branch (k/v int8 with per-token f32 scales ks, vs of shape
+// (B, Lk), read through strides out of the cache's (depth, B, L_max)
+// planes): the int8 values are converted to q's type (exact in bf16) as
+// the K/V tiles are staged in shared memory, so no dequantised copy ever
+// reaches device memory. The order is the TPU kernel's:
+//   s_ij = (q_i . kq_j) * scale * ks_j  (+ bias_ij)
+//   p_ij = exp(s_ij - m_i);  l_i = sum_j p_ij   (l BEFORE the value scale)
+//   o_i  = sum_j cast_q(p_ij * vs_j) vq_j / max(l_i, 1e-30)
+//
 // Bound on this card: memory. At the decode shapes (2B=32, H=30, hd=64,
 // bf16, Lq = pn^2 <= 256, Lk <= 680) one launch moves q, k, v and o once
 // (about 230 MB at the last 256px scale, ~69 us at 3.35 TB/s) against
-// 43 GFLOP (~43 us at the bf16 tensor-core peak).
+// 43 GFLOP (~43 us at the bf16 tensor-core peak). With int8 K/V the bytes
+// fall to about 147 MB (~44 us), level with the operations.
 //
 // Two kernels, one per input type; both keep the (Lq, Lk) score matrix out
 // of device memory with an online softmax over 64-key tiles, and both read
@@ -36,6 +46,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -60,31 +74,32 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// One key/value scale of the tile into shared memory: 0 past Lk.
+__device__ __forceinline__ float tile_scale(const float* sc, ll s_sb, ll s_sl,
+                                            ll b, int j, int Lk) {
+  return j < Lk ? sc[b * s_sb + (ll)j * s_sl] : 0.f;
 }
 
 // Fragment layout of m16n8k16 (lane = 4 * g + t): A element pairs at rows
 // g / g+8 and columns 2t / 2t+8; B pairs at rows (k) 2t / 2t+8 and column
 // (n) g; C pairs at rows g / g+8 and columns 2t, 2t+1.
-template <int HD>
+// KV is bf16, or int8 with the scales ksc/vsc (Q8).
+template <int HD, bool Q8>
 __global__ void __launch_bounds__(MT) attention_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ bias,
+    const bf16* __restrict__ q, const void* __restrict__ k_,
+    const void* __restrict__ v_, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const float* __restrict__ bias,
     bf16* __restrict__ out, int Lq, int Lk, int H, ll q_sb, ll q_sl, ll k_sb,
-    ll k_sl, ll v_sb, ll v_sl, float scale) {
+    ll k_sl, ll v_sb, ll v_sl, ll s_sb, ll s_sl, float scale) {
+  typedef typename std::conditional<Q8, int8_t, bf16>::type KV;
   constexpr int KS = HD / 16;  // k-steps of q k^T over the head dim
   constexpr int SN = MK / 8;   // score n-tiles per key tile
   constexpr int ON = HD / 8;   // output n-tiles
-  constexpr int CH = HD / 8;   // 16-byte chunks per key row
+  constexpr int VE = 16 / sizeof(KV);  // K/V elements per 16-byte load
+  constexpr int CH = HD / VE;  // 16-byte chunks per key row
   __shared__ __align__(16) bf16 ks[MK][HD + PAD];  // [key][d]
   __shared__ __align__(16) bf16 vt[HD][MK + PAD];  // [d][key]
+  __shared__ float kst[Q8 ? MK : 1], vst[Q8 ? MK : 1];  // the tile's scales
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -93,8 +108,8 @@ __global__ void __launch_bounds__(MT) attention_mma_kernel(
   const int r0 = blockIdx.x * MQ + warp * 16;
 
   const bf16* qb = q + b * q_sb + (ll)h * HD;
-  const bf16* kb = k + b * k_sb + (ll)h * HD;
-  const bf16* vb = v + b * v_sb + (ll)h * HD;
+  const KV* kb = static_cast<const KV*>(k_) + b * k_sb + (ll)h * HD;
+  const KV* vb = static_cast<const KV*>(v_) + b * v_sb + (ll)h * HD;
 
   // this warp's q as A fragments, straight from device memory; rows past
   // Lq are zero
@@ -120,23 +135,41 @@ __global__ void __launch_bounds__(MT) attention_mma_kernel(
     __syncthreads();  // the previous tile's readers are done
     // keys row-major: neighbouring threads read neighbouring 16 bytes
     for (int i = threadIdx.x; i < MK * CH; i += MT) {
-      const int c = i / CH, d0 = (i % CH) * 8;
+      const int c = i / CH, d0 = (i % CH) * VE;
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
       if (kv0 + c < Lk)
         x = *reinterpret_cast<const uint4*>(kb + (ll)(kv0 + c) * k_sl + d0);
-      *reinterpret_cast<uint4*>(&ks[c][d0]) = x;
+      if constexpr (Q8) {
+        uint4 o[2];
+        int8x16_to_bf16(x, o);
+        *reinterpret_cast<uint4*>(&ks[c][d0]) = o[0];
+        *reinterpret_cast<uint4*>(&ks[c][d0 + 8]) = o[1];
+      } else {
+        *reinterpret_cast<uint4*>(&ks[c][d0]) = x;
+      }
     }
     // values transposed: neighbouring threads take neighbouring keys, so
     // the 2-byte stores into a [d] row do not collide in a bank; zero past
     // Lk (p is 0 there, and 0 * garbage may be NaN)
     for (int i = threadIdx.x; i < MK * CH; i += MT) {
-      const int c = i % MK, d0 = (i / MK) * 8;
+      const int c = i % MK, d0 = (i / MK) * VE;
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
       if (kv0 + c < Lk)
         x = *reinterpret_cast<const uint4*>(vb + (ll)(kv0 + c) * v_sl + d0);
-      const bf16* xe = reinterpret_cast<const bf16*>(&x);
+      const KV* xe = reinterpret_cast<const KV*>(&x);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) vt[d0 + e][c] = xe[e];
+      for (int e = 0; e < VE; ++e) {
+        if constexpr (Q8)
+          vt[d0 + e][c] = __float2bfloat16_rn((float)xe[e]);
+        else
+          vt[d0 + e][c] = xe[e];
+      }
+    }
+    if constexpr (Q8) {
+      if (threadIdx.x < MK) {
+        kst[threadIdx.x] = tile_scale(ksc, s_sb, s_sl, b, kv0 + threadIdx.x, Lk);
+        vst[threadIdx.x] = tile_scale(vsc, s_sb, s_sl, b, kv0 + threadIdx.x, Lk);
+      }
     }
     __syncthreads();
 
@@ -168,6 +201,7 @@ __global__ void __launch_bounds__(MT) attention_mma_kernel(
           float x = -INFINITY;
           if (c < Lk) {
             x = s[n][2 * hf + e] * scale;
+            if constexpr (Q8) x *= kst[n * 8 + 2 * t + e];
             if (bias != nullptr && r < Lq) x += bias[(ll)r * Lk + c];
           }
           s[n][2 * hf + e] = x;
@@ -184,8 +218,8 @@ __global__ void __launch_bounds__(MT) attention_mma_kernel(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float p = expf(s[n][2 * hf + e] - m_new);
-          s[n][2 * hf + e] = p;
-          rs += p;
+          rs += p;  // l sums p before the value scale folds in
+          s[n][2 * hf + e] = Q8 ? p * vst[n * 8 + 2 * t + e] : p;
         }
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
       rs += __shfl_xor_sync(0xffffffffu, rs, 2);
@@ -245,24 +279,30 @@ __device__ __forceinline__ void load4(const float* p, float* out) {
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  // qT (HD x SQ), kT (HD x SK), v (BK x HD), pT (BK x SQ), all f32
+  // qT (HD x SQ), kT (HD x SK), v (BK x HD), pT (BK x SQ), and the tile's
+  // two rows of int8 key/value scales, all f32
   return sizeof(float) * (size_t(HD) * SQ + size_t(HD) * SK +
-                          size_t(BK) * HD + size_t(BK) * SQ);
+                          size_t(BK) * HD + size_t(BK) * SQ + 2 * size_t(BK));
 }
 
-template <int HD>
+template <int HD, bool Q8>
 __global__ void __launch_bounds__(NT) attention_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ bias,
+    const float* __restrict__ q, const void* __restrict__ k_,
+    const void* __restrict__ v_, const float* __restrict__ ksc,
+    const float* __restrict__ vsc, const float* __restrict__ bias,
     float* __restrict__ out, int Lq, int Lk, int H, ll q_sb, ll q_sl,
-    ll k_sb, ll k_sl, ll v_sb, ll v_sl, float scale) {
-  constexpr int VN = 4;        // elements per 16-byte load
+    ll k_sb, ll k_sl, ll v_sb, ll v_sl, ll s_sb, ll s_sl, float scale) {
+  typedef typename std::conditional<Q8, int8_t, float>::type KV;
+  constexpr int VN = 4;        // q elements per 16-byte load
+  constexpr int KN = 16 / sizeof(KV);  // K/V elements per 16-byte load
   constexpr int DJ = HD / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* qT = reinterpret_cast<float*>(smem4);  // [d][r]
   float* kT = qT + HD * SQ;                      // [d][c]
   float* vs = kT + HD * SK;                      // [c][d]
   float* pT = vs + BK * HD;                      // [c][r]
+  float* kst = pT + BK * SQ;                     // [c] key scales
+  float* vst = kst + BK;                         // [c] value scales
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -271,8 +311,8 @@ __global__ void __launch_bounds__(NT) attention_f32_kernel(
   const ll b = blockIdx.z;
 
   const float* qb = q + b * q_sb + (ll)h * HD;
-  const float* kb = k + b * k_sb + (ll)h * HD;
-  const float* vb = v + b * v_sb + (ll)h * HD;
+  const KV* kb = static_cast<const KV*>(k_) + b * k_sb + (ll)h * HD;
+  const KV* vb = static_cast<const KV*>(v_) + b * v_sb + (ll)h * HD;
 
   // stage this block's queries, transposed; rows past Lq are zero
   for (int i = tid; i < BQ * (HD / VN); i += NT) {
@@ -294,18 +334,26 @@ __global__ void __launch_bounds__(NT) attention_f32_kernel(
 
   for (int kv0 = 0; kv0 < Lk; kv0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * (HD / VN); i += NT) {
-      const int c = i / (HD / VN), d0 = (i % (HD / VN)) * VN;
+    for (int i = tid; i < BK * (HD / KN); i += NT) {
+      const int c = i / (HD / KN), d0 = (i % (HD / KN)) * KN;
       // zero V past Lk: p is 0 there, and 0 * garbage may be NaN
-      float kbuf[VN] = {0.f, 0.f, 0.f, 0.f}, vbuf[VN] = {0.f, 0.f, 0.f, 0.f};
+      uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
       if (kv0 + c < Lk) {
-        load4(kb + (ll)(kv0 + c) * k_sl + d0, kbuf);
-        load4(vb + (ll)(kv0 + c) * v_sl + d0, vbuf);
+        kw = *reinterpret_cast<const uint4*>(kb + (ll)(kv0 + c) * k_sl + d0);
+        vw = *reinterpret_cast<const uint4*>(vb + (ll)(kv0 + c) * v_sl + d0);
       }
+      const KV* ke = reinterpret_cast<const KV*>(&kw);
+      const KV* ve = reinterpret_cast<const KV*>(&vw);
 #pragma unroll
-      for (int e = 0; e < VN; ++e) {
-        kT[(d0 + e) * SK + c] = kbuf[e];
-        vs[c * HD + d0 + e] = vbuf[e];
+      for (int e = 0; e < KN; ++e) {
+        kT[(d0 + e) * SK + c] = (float)ke[e];
+        vs[c * HD + d0 + e] = (float)ve[e];
+      }
+    }
+    if constexpr (Q8) {
+      if (tid < BK) {
+        kst[tid] = tile_scale(ksc, s_sb, s_sl, b, kv0 + tid, Lk);
+        vst[tid] = tile_scale(vsc, s_sb, s_sl, b, kv0 + tid, Lk);
       }
     }
     __syncthreads();
@@ -339,6 +387,7 @@ __global__ void __launch_bounds__(NT) attention_f32_kernel(
         float x = -INFINITY;
         if (c < Lk) {
           x = s[i][j] * scale;
+          if constexpr (Q8) x *= kst[tx * 4 + j];
           if (bias != nullptr && r < Lq) x += bias[(ll)r * Lk + c];
         }
         s[i][j] = x;
@@ -354,8 +403,8 @@ __global__ void __launch_bounds__(NT) attention_f32_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
-        s[i][j] = p;
-        rs += p;
+        rs += p;  // l sums p before the value scale folds in
+        s[i][j] = Q8 ? p * vst[tx * 4 + j] : p;
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, o);
@@ -408,48 +457,60 @@ __global__ void __launch_bounds__(NT) attention_f32_kernel(
 // ---------------------------------------------------------------------------
 
 struct Args {
-  const void *q, *k, *v, *bias;
+  const void *q, *k, *v, *ks, *vs, *bias;
   void* out;
   int B, Lq, Lk, H;
-  ll q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
+  ll q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, s_sb, s_sl;
   float scale;
   cudaStream_t stream;
 };
 
-template <int HD>
+template <int HD, bool Q8>
 cudaError_t launch_bf16(const Args& a) {
   dim3 grid((a.Lq + MQ - 1) / MQ, a.H, a.B);
-  attention_mma_kernel<HD><<<grid, MT, 0, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const float*>(a.bias),
-      static_cast<bf16*>(a.out), a.Lq, a.Lk, a.H, a.q_sb, a.q_sl, a.k_sb,
-      a.k_sl, a.v_sb, a.v_sl, a.scale);
+  attention_mma_kernel<HD, Q8><<<grid, MT, 0, a.stream>>>(
+      static_cast<const bf16*>(a.q), a.k, a.v,
+      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+      static_cast<const float*>(a.bias), static_cast<bf16*>(a.out), a.Lq,
+      a.Lk, a.H, a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.s_sb,
+      a.s_sl, a.scale);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool Q8>
 cudaError_t launch_f32(const Args& a) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        attention_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        attention_f32_kernel<HD, Q8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   dim3 grid((a.Lq + BQ - 1) / BQ, a.H, a.B);
-  attention_f32_kernel<HD><<<grid, NT, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.bias),
-      static_cast<float*>(a.out), a.Lq, a.Lk, a.H, a.q_sb, a.q_sl, a.k_sb,
-      a.k_sl, a.v_sb, a.v_sl, a.scale);
+  attention_f32_kernel<HD, Q8><<<grid, NT, smem, a.stream>>>(
+      static_cast<const float*>(a.q), a.k, a.v,
+      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+      static_cast<const float*>(a.bias), static_cast<float*>(a.out), a.Lq,
+      a.Lk, a.H, a.q_sb, a.q_sl, a.k_sb, a.k_sl, a.v_sb, a.v_sl, a.s_sb,
+      a.s_sl, a.scale);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch(int dtype, const Args& a) {
-  return dtype == 1 ? launch_bf16<HD>(a) : launch_f32<HD>(a);
+template <bool Q8>
+cudaError_t launch(int dtype, int hd, const Args& a) {
+  switch (hd) {
+    case 32: return dtype == 1 ? launch_bf16<32, Q8>(a) : launch_f32<32, Q8>(a);
+    case 64: return dtype == 1 ? launch_bf16<64, Q8>(a) : launch_f32<64, Q8>(a);
+    case 128: return dtype == 1 ? launch_bf16<128, Q8>(a) : launch_f32<128, Q8>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool bad_shape(int dtype, int B, int Lq, int Lk, int H) {
+  return B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || H > 65535 || B > 65535 ||
+         (dtype != 0 && dtype != 1);
 }
 
 }  // namespace
@@ -464,18 +525,29 @@ extern "C" int sdvar_attention(const void* q, const void* k, const void* v,
                                long long q_sl, long long k_sb, long long k_sl,
                                long long v_sb, long long v_sl, float scale,
                                void* stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || H <= 0 || H > 65535 || B > 65535 ||
-      (dtype != 0 && dtype != 1))
+  if (bad_shape(dtype, B, Lq, Lk, H)) return (int)cudaErrorInvalidValue;
+  const Args a{q,    k,    v,    nullptr, nullptr, bias, out,
+               B,    Lq,   Lk,   H,       q_sb,    q_sl, k_sb,
+               k_sl, v_sb, v_sl, 0,       0,       scale,
+               static_cast<cudaStream_t>(stream)};
+  return (int)launch<false>(dtype, hd, a);
+}
+
+// The INT8-KV branch: k/v int8 with the same layout rules (16 int8 per
+// load, so strides a multiple of 16); ks/vs the per-token float32 key and
+// value scales, element (b, j) at b * s_sb + j * s_sl.
+extern "C" int sdvar_attention_int8(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* bias, void* out, int dtype, int B, int Lq,
+    int Lk, int H, int hd, long long q_sb, long long q_sl, long long k_sb,
+    long long k_sl, long long v_sb, long long v_sl, long long s_sb,
+    long long s_sl, float scale, void* stream) {
+  if (bad_shape(dtype, B, Lq, Lk, H) || ks == nullptr || vs == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Args a{q,    k,    v,    bias, out,  B,     Lq,
-               Lk,   H,    q_sb, q_sl, k_sb, k_sl,  v_sb,
-               v_sl, scale, static_cast<cudaStream_t>(stream)};
-  switch (hd) {
-    case 32: return (int)launch<32>(dtype, a);
-    case 64: return (int)launch<64>(dtype, a);
-    case 128: return (int)launch<128>(dtype, a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Args a{q,    k,    v,    ks,   vs,   bias,  out,
+               B,    Lq,   Lk,   H,    q_sb, q_sl,  k_sb,
+               k_sl, v_sb, v_sl, s_sb, s_sl, scale, static_cast<cudaStream_t>(stream)};
+  return (int)launch<true>(dtype, hd, a);
 }
 
 // Shared memory one block takes for head dim hd and dtype (0 = float32,

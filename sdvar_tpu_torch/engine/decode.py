@@ -28,6 +28,7 @@ from sdvar_tpu_torch.models import quantizer as Q
 from sdvar_tpu_torch.models import var as M
 from sdvar_tpu_torch.models import vqvae as VQ
 from sdvar_tpu_torch.models.var import KVCache
+from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
 from sdvar_tpu_torch.ops.sampling import (
     cfg_double,
     cfg_mix,
@@ -39,6 +40,7 @@ from sdvar_tpu_torch.ops.sampling import (
 from sdvar_tpu_torch.utils.device import full_f32, resolve_device
 
 Seeds = Union[int, Sequence[int], torch.Tensor]
+Cache = Union[KVCache, QuantizedKVCache]
 
 
 @dataclasses.dataclass
@@ -47,34 +49,37 @@ class DecodeState:
 
     f_hat: torch.Tensor      # (B, Cvae, HW, HW) f32
     next_map: torch.Tensor   # (B, Cvae, pn', pn') input for the next scale
-    cache: KVCache
+    cache: Cache
     seeds: torch.Tensor      # (B,) request seeds
 
 
 def init_decode(
     var_cfg: VARConfig, params, label_B, seed: Seeds = 0,
     dtype=torch.bfloat16, kv_mode: str = "bf16",
-    cache: Optional[KVCache] = None, device="cuda",
+    cache: Optional[Cache] = None, device="cuda",
 ) -> Tuple[DecodeState, torch.Tensor, torch.Tensor]:
     """Empty state, sos (2B, C) f32 and lvl_pos (L, C) f32 for a batch.
 
-    The uncond rows use class id ``num_classes``. ``kv_mode``: "bf16" or
-    "f32". ``cache``: a preallocated KVCache to reuse (every scale reads
-    only rows written earlier in the same decode).
+    The uncond rows use class id ``num_classes``. ``kv_mode``: "bf16",
+    "f32" or "int8" (``QuantizedKVCache``: per-token-scaled INT8).
+    ``cache``: a preallocated KVCache or QuantizedKVCache to reuse (every
+    scale reads only rows written earlier in the same decode).
     """
     dev = resolve_device(device)
     if params["class_emb"].device != dev:
         raise ValueError(f"parameters lie on {params['class_emb'].device}, "
                          f"decode asked for {dev}")
-    if kv_mode not in ("bf16", "f32"):
-        raise ValueError(f"kv_mode {kv_mode!r} is not ported (bf16 | f32)")
+    if kv_mode not in ("bf16", "f32", "int8"):
+        raise ValueError(f"unknown kv_mode {kv_mode!r} (bf16 | f32 | int8)")
     label_B = torch.as_tensor(label_B, dtype=torch.long, device=dev)
     B = label_B.shape[0]
     label_2B = cfg_pair(label_B, torch.full_like(label_B, var_cfg.num_classes))
     lvl_pos = M.lvl_pos_embed(var_cfg, params).float()
     sos = params["class_emb"][label_2B].float()
     HW = var_cfg.patch_nums[-1]
-    if cache is None:
+    if cache is None and kv_mode == "int8":
+        cache = QuantizedKVCache.create(var_cfg, 2 * B, device=dev)
+    elif cache is None:
         cache = KVCache.create(
             var_cfg, 2 * B, device=dev,
             dtype=torch.float32 if kv_mode == "f32" else torch.bfloat16)
@@ -133,7 +138,7 @@ def decode_all_scales(
     label_B, seed: Seeds = 0,
     samp: SamplingConfig = SamplingConfig(), dtype=torch.bfloat16,
     return_ids: bool = False, kv_mode: str = "bf16",
-    cache: Optional[KVCache] = None, return_cache: bool = False,
+    cache: Optional[Cache] = None, return_cache: bool = False,
     device="cuda",
 ):
     """All scales -> f_hat (B, Cvae, HW, HW), optionally with the sampled
@@ -160,15 +165,15 @@ def generate_images(
     var_cfg: VARConfig, vae_cfg: VQVAEConfig, var_params, vae_params,
     label_B, seed: Seeds = 0,
     samp: SamplingConfig = SamplingConfig(), dtype=torch.bfloat16,
-    device="cuda",
+    kv_mode: str = "bf16", device="cuda",
 ) -> torch.Tensor:
     """Labels -> images (B, 3, H, W) in [0, 1], f32.
 
     ``seed``: an int for the whole batch, or one seed per request; with
     one seed per request, a request's image depends only on its label and
-    seed, not on its batch slot."""
+    seed, not on its batch slot. ``kv_mode`` as in ``init_decode``."""
     f_hat = decode_all_scales(var_cfg, vae_cfg, var_params,
                               vae_params["quant"], label_B, seed, samp, dtype,
-                              device=device)
+                              kv_mode=kv_mode, device=device)
     img = VQ.fhat_to_img(vae_cfg, vae_params, f_hat)
     return (img + 1.0) * 0.5

@@ -3,16 +3,18 @@ only (the counterpart of ``sdvar_tpu/models/var.py``).
 
 Parameters are a nested dict of tensors with the JAX package's layout:
 per-layer tensors stacked on a leading ``depth`` axis, linear weights as
-(in, out). The block stack is a Python loop over layers. Casts follow the
-JAX package: LayerNorm statistics in f32, AdaLN modulations in f32 cast to
-the activation dtype, the head (AdaLN-before-head + classifier) in f32.
+(in, out), or as INT8 leaves (``ops.quantization.QuantizedLinear`` /
+``W8A8Linear``) after ``quantize_var_params``. The block stack is a Python
+loop over layers. Casts follow the JAX package: LayerNorm statistics in
+f32, AdaLN modulations in f32 cast to the activation dtype, the head
+(AdaLN-before-head + classifier) in f32.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -20,6 +22,16 @@ import torch.nn.functional as F
 
 from sdvar_tpu_torch.config import VARConfig
 from sdvar_tpu_torch.ops.attention import attention
+from sdvar_tpu_torch.ops.kernels.quantize import act_quantize
+from sdvar_tpu_torch.ops.quantization import (
+    QuantizedKVCache,
+    W8A8Linear,
+    layer_slice,
+    linear_blc,
+    quantize_tokens,
+    resolve_weight,
+    w8a8_prequant_matmul,
+)
 from sdvar_tpu_torch.utils.device import resolve_device
 
 Params = Dict
@@ -121,11 +133,6 @@ def init_var_params(cfg: VARConfig, seed: int = 0, device="cuda",
 # Building blocks
 # ---------------------------------------------------------------------------
 
-def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(..., K) @ (K, N) in x's dtype (bf16 products accumulate in f32)."""
-    return torch.matmul(x, w.to(x.dtype))
-
-
 def _ln(x: torch.Tensor, eps: float) -> torch.Tensor:
     """LayerNorm without affine, statistics in f32, cast back."""
     x32 = x.float()
@@ -167,23 +174,28 @@ def precompute_modulations(cfg: VARConfig, params: Params,
     blocks = params["blocks"]
     if cfg.shared_aln:
         return cond_pre[None, :, 0] + blocks["ada_gss"][:, :1].float()
+    w_all = blocks["ada_lin_w"]  # a dequantised layer at a time when INT8
     return torch.stack([
-        (cond_pre @ w.float() + b).reshape(-1, 6, C)
-        for w, b in zip(blocks["ada_lin_w"], blocks["ada_lin_b"])
+        (cond_pre @ resolve_weight(layer_slice(w_all, li), torch.float32)
+         + b).reshape(-1, 6, C)
+        for li, b in enumerate(blocks["ada_lin_b"])
     ])
 
 
 def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
-               attn_bias: Optional[torch.Tensor], cache: Optional[KVCache],
+               attn_bias: Optional[torch.Tensor],
+               cache: Union[KVCache, QuantizedKVCache, None],
                li: int, cache_begin: int, kv_len: int) -> torch.Tensor:
     """Self-attention for one block. With a cache, this layer's new keys
     and values are written in place at [li, :, cache_begin:...) and the
-    attention reads keys [0, kv_len) straight from the cache."""
+    attention reads keys [0, kv_len) straight from the cache; an INT8 cache
+    takes the new tokens quantized, with their per-token scales beside
+    them, and the attention kernel dequantises as it reads."""
     B, L, C = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     qkv_bias = torch.cat([layer["q_bias"], torch.zeros_like(layer["q_bias"]),
                           layer["v_bias"]]).to(x.dtype)
-    qkv = _linear(x, layer["qkv_w"]) + qkv_bias
+    qkv = linear_blc(x, layer["qkv_w"], x.dtype) + qkv_bias
     q, k, v = qkv.view(B, L, 3, H, hd).unbind(2)  # (B, L, H, hd) views
 
     if cfg.attn_l2_norm:
@@ -194,45 +206,64 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
     else:
         scale = 0.25 / math.sqrt(hd)
 
+    kv_scales = None
     if cache is not None:
         end = cache_begin + L
-        cache.k[li, :, cache_begin:end] = k.reshape(B, L, C)
-        cache.v[li, :, cache_begin:end] = v.reshape(B, L, C)
+        if isinstance(cache, QuantizedKVCache):
+            for vals, scales, new in ((cache.k, cache.k_s, k),
+                                      (cache.v, cache.v_s, v)):
+                nq, ns = quantize_tokens(new.reshape(B, L, C))
+                vals[li, :, cache_begin:end] = nq
+                scales[li, :, cache_begin:end] = ns
+            kv_scales = (cache.k_s[li, :, :kv_len], cache.v_s[li, :, :kv_len])
+        else:
+            cache.k[li, :, cache_begin:end] = k.reshape(B, L, C)
+            cache.v[li, :, cache_begin:end] = v.reshape(B, L, C)
         k = cache.k[li, :, :kv_len].view(B, kv_len, H, hd)
         v = cache.v[li, :, :kv_len].view(B, kv_len, H, hd)
-        if k.dtype != x.dtype:  # f32 cache under a bf16 model
+        if kv_scales is None and k.dtype != x.dtype:  # f32 cache, bf16 model
             k, v = k.to(x.dtype), v.to(x.dtype)
 
-    out = attention(q, k, v, attn_bias, scale).reshape(B, L, C)
-    return _linear(out, layer["proj_w"]) + layer["proj_b"].to(x.dtype)
+    out = attention(q, k, v, attn_bias, scale,
+                    kv_scales=kv_scales).reshape(B, L, C)
+    return linear_blc(out, layer["proj_w"], x.dtype) + layer["proj_b"].to(x.dtype)
 
 
 def _ffn(layer: Dict, x: torch.Tensor) -> torch.Tensor:
-    h = _linear(x, layer["fc1_w"]) + layer["fc1_b"].to(x.dtype)
+    """MLP with tanh-GELU. A W8A8 fc2 takes the fused route: fc1, then
+    bias + GELU (f32) + per-token int8 quantization in one pass, then the
+    exact s8 x s8 -> s32 product."""
+    fc2 = layer["fc2_w"]
+    if isinstance(fc2, W8A8Linear):
+        h = linear_blc(x, layer["fc1_w"], x.dtype)  # bias goes into the pass
+        hq, hs = act_quantize(h, layer["fc1_b"], gelu=True)
+        return w8a8_prequant_matmul(hq, hs, fc2, x.dtype) \
+            + layer["fc2_b"].to(x.dtype)
+    h = linear_blc(x, layer["fc1_w"], x.dtype) + layer["fc1_b"].to(x.dtype)
     h = F.gelu(h, approximate="tanh")
-    return _linear(h, layer["fc2_w"]) + layer["fc2_b"].to(x.dtype)
+    return linear_blc(h, fc2, x.dtype) + layer["fc2_b"].to(x.dtype)
 
 
 def apply_transformer(
     cfg: VARConfig, params: Params, x: torch.Tensor, cond_BD: torch.Tensor,
     attn_bias: Optional[torch.Tensor] = None,
-    cache: Optional[KVCache] = None,
+    cache: Union[KVCache, QuantizedKVCache, None] = None,
     cache_begin: int = 0, kv_len: int = 0,
     mods: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the block stack (no dropout, no drop-path: inference only).
 
     x: (B, L, C) in the compute dtype; cond_BD: (B, D) class embedding;
-    attn_bias: optional (Lq, Lk) additive bias; cache: optional KVCache
-    updated in place (new tokens at ``cache_begin``, attention over keys
-    [0, kv_len)); mods: optional precomputed (depth, B, 6, C)
-    modulations."""
+    attn_bias: optional (Lq, Lk) additive bias; cache: optional KVCache or
+    QuantizedKVCache updated in place (new tokens at ``cache_begin``,
+    attention over keys [0, kv_len)); mods: optional precomputed
+    (depth, B, 6, C) modulations."""
     if mods is None:
         mods = precompute_modulations(cfg, params, cond_BD)
     blocks = params["blocks"]
     h = x
     for li in range(cfg.depth):
-        layer = {name: t[li] for name, t in blocks.items()}
+        layer = {name: layer_slice(t, li) for name, t in blocks.items()}
         g1, g2, s1, s2, sh1, sh2 = (mods[li][:, None, i].to(h.dtype)
                                     for i in range(6))
         a_in = _ln(h, cfg.norm_eps) * (1.0 + s1) + sh1
@@ -252,7 +283,8 @@ def get_logits(cfg: VARConfig, params: Params, h: torch.Tensor,
     ss = ss.reshape(-1, 1, 2, C)
     scale, shift = ss[:, :, 0, :], ss[:, :, 1, :]
     h32 = _ln(h.float(), cfg.norm_eps) * (scale + 1.0) + shift
-    return h32 @ params["head"]["w"].float() + params["head"]["b"]
+    return linear_blc(h32, params["head"]["w"], torch.float32) \
+        + params["head"]["b"]
 
 
 def word_embed(params: Params, x_BLCv: torch.Tensor, dtype) -> torch.Tensor:

@@ -3,8 +3,9 @@
 Each source under ``sdvar_tpu_torch/csrc/`` becomes one shared library with
 a plain C interface, built for ``sm_90a`` on first use into
 ``<repo>/build/kernels/<name>-<hash>/`` (listed in ``.gitignore``). The hash
-covers the source and the compiler flags, so an edited source is rebuilt
-and an unchanged one is loaded from disk. Build errors raise with the
+covers the source, the shared ``*.cuh`` headers beside it and the compiler
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded from disk. Build errors raise with the
 compiler's output; the ``-Xptxas -v`` report (registers, shared memory,
 spills) is kept beside the library and returned by :func:`build_log`.
 """
@@ -40,8 +41,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 

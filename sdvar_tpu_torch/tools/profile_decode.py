@@ -1,8 +1,10 @@
 """Where one VAR-d30 256px B=16 generation spends its device time.
 
-    python3 -m sdvar_tpu_torch.tools.profile_decode
+    python3 -m sdvar_tpu_torch.tools.profile_decode [--mode bf16|w8a8|w8]
 
-Warms up with one ``generate_images``, then profiles the latent decode
+``--mode``: bf16 weights and KV cache (the default), or the weights
+quantized by ``quantize_var_params(mode=...)`` with an INT8 KV cache. Warms
+up with one ``generate_images``, then profiles the latent decode
 (``decode_all_scales``) and the pixel decode (``fhat_to_img``) in two
 ``torch.profiler`` windows (CPU + CUDA activities). For each window it
 prints the host wall time, the summed device time and launch count of all
@@ -14,6 +16,7 @@ CUDA card; random weights from a seed.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -24,13 +27,17 @@ from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
 from sdvar_tpu_torch.engine.decode import decode_all_scales, generate_images
 from sdvar_tpu_torch.models.var import init_var_params
 from sdvar_tpu_torch.models.vqvae import fhat_to_img, init_vqvae_params
+from sdvar_tpu_torch.ops.quantization import quantize_var_params
 
 BATCH = 16  # requests per batch (2B = 32 rows under CFG)
-TOP = 12    # kernels listed per window
+TOP = 16    # kernels listed per window
 
 _CATEGORIES = (  # (category, substrings of the kernel name), first match wins
     ("port attention kernel", ("attention_mma_kernel", "attention_f32_kernel")),
     ("port sampler kernel", ("fused_sample_kernel",)),
+    ("port int8 matmul kernel", ("int8_matmul_bf16_kernel", "int8_matmul_f32_kernel")),
+    ("port act-quant kernel", ("act_quantize_kernel",)),
+    ("int8 GEMM (cuBLASLt, _int_mm)", ("s8", "i8", "imma", "int8")),
     ("convolution", ("fprop", "fft", "conv", "dgrad")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("reduction", ("reduce_kernel",)),
@@ -72,20 +79,28 @@ def _report(title: str, fn, top: int):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("bf16", "w8a8", "w8"), default="bf16")
+    mode = ap.parse_args().mode
+    kv_mode = "bf16" if mode == "bf16" else "int8"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(f"card: {smi}")
+    print(f"card: {smi}; weights {mode}, KV cache {kv_mode}")
     var_cfg, vae_cfg = VARConfig(depth=30), VQVAEConfig()
     samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
     params = init_var_params(var_cfg, seed=0, dtype=torch.bfloat16)
+    if mode != "bf16":
+        params = quantize_var_params(params, mode=mode)
     vae = init_vqvae_params(vae_cfg, seed=1, eini=1.0)
     labels = torch.arange(BATCH) % 1000
-    generate_images(var_cfg, vae_cfg, params, vae, labels, 0, samp)
+    generate_images(var_cfg, vae_cfg, params, vae, labels, 0, samp,
+                    kv_mode=kv_mode)
     torch.cuda.synchronize()
 
     f_hat = _report("latent decode (decode_all_scales)", lambda: decode_all_scales(
-        var_cfg, vae_cfg, params, vae["quant"], labels, 1, samp), TOP)
+        var_cfg, vae_cfg, params, vae["quant"], labels, 1, samp,
+        kv_mode=kv_mode), TOP)
     with torch.inference_mode():
         _report("pixel decode (fhat_to_img)",
                 lambda: fhat_to_img(vae_cfg, vae, f_hat), TOP)

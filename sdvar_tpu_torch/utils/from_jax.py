@@ -6,7 +6,11 @@ kernels OIHW), so the bridge is a structural copy that checks the tree and
 moves every leaf to a tensor on the target device. It never imports JAX:
 callers pass the tree as numpy arrays (``jax.tree.map(np.asarray, p)``).
 bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are carried over bit for
-bit.
+bit. Quantized leaves of ``quantize_var_params`` reach the bridge as the
+JAX package's NamedTuples of numpy arrays (``jax.tree.map`` keeps the
+type); they are recognised by class name and fields, without importing the
+JAX package, and become the port's class of the same meaning. Any other
+tuple raises: the bridge never guesses what a tuple holds.
 """
 
 from __future__ import annotations
@@ -14,11 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sdvar_tpu_torch.ops.quantization import QuantizedLinear, W8A8Linear, as_w8a8
 from sdvar_tpu_torch.utils.device import resolve_device
 
 _VAR_KEYS = ("word_embed", "class_emb", "pos_start", "pos_1LC", "lvl_embed",
              "blocks", "head_nm", "head")
 _VQVAE_KEYS = ("encoder", "decoder", "quant_conv", "post_quant_conv", "quant")
+_QUANTIZED = {cls.__name__: cls for cls in (QuantizedLinear, W8A8Linear)}
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
@@ -31,8 +37,18 @@ def _to_tensor(a, device: torch.device) -> torch.Tensor:
 def _convert(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, list):
         return [_convert(v, device) for v in tree]
+    if isinstance(tree, tuple):
+        name = type(tree).__name__
+        cls = _QUANTIZED.get(name)
+        if cls is None or getattr(tree, "_fields", None) != cls._fields:
+            raise TypeError(f"weight bridge: cannot carry a {name} leaf "
+                            f"(known quantized leaves: {sorted(_QUANTIZED)})")
+        q, scale = (_to_tensor(a, device) for a in tree)
+        if q.dtype != torch.int8:
+            raise TypeError(f"weight bridge: {name}.q is {q.dtype}, not int8")
+        return as_w8a8(q, scale) if cls is W8A8Linear else cls(q, scale)
     return _to_tensor(tree, device)
 
 

@@ -1,7 +1,8 @@
 """The slice as a whole: the port's KV-cached CFG decode and image
-generation against the JAX package's (greedy, f32), and the port's own
-decode invariants (seed determinism, stepwise == full, cache reuse,
-per-request seeds independent of the batch slot)."""
+generation against the JAX package's (greedy, f32), bf16 weights and the
+W8A8 + INT8-KV configuration, and the port's own decode invariants (seed
+determinism, stepwise == full, cache reuse, per-request seeds independent
+of the batch slot)."""
 
 import numpy as np
 import pytest
@@ -16,9 +17,11 @@ from sdvar_tpu.config import VQVAEConfig as JVQVAEConfig
 from sdvar_tpu.engine import decode as JD
 from sdvar_tpu.models import var as JM
 from sdvar_tpu.models import vqvae as JVQ
+from sdvar_tpu.ops import quantization as JQ
 from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
 from sdvar_tpu_torch.engine import decode as D
 from sdvar_tpu_torch.models import vqvae as VQ
+from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
 from sdvar_tpu_torch.utils.from_jax import var_params_from_jax, vqvae_params_from_jax
 
 PNS = (1, 2, 3)
@@ -76,6 +79,57 @@ def test_greedy_generation_matches_jax(stack):
     assert img_t.shape == (2, 3, 48, 48)
     assert img_t.min() >= 0.0 and img_t.max() <= 1.0
     np.testing.assert_allclose(img_t, img_j, rtol=1e-3, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def w8a8(stack):
+    """The stack's VAR weights quantized by the JAX package (mode w8a8),
+    numpy for JAX and carried over by the bridge for the port."""
+    vp = stack[4]
+    jq = jax.tree.map(np.asarray, JQ.quantize_var_params(vp, mode="w8a8"))
+    return jq, var_params_from_jax(jq, device="cpu")
+
+
+def test_w8a8_int8_kv_greedy_matches_jax(stack, w8a8):
+    """W8A8 weights + INT8 KV cache, greedy, f32: the ids equal JAX's and
+    f_hat agrees to 1e-4. f_hat is a function of the ids, so equal ids are
+    the real check; at this size no logit pair is close enough for the
+    last-bit differences of the quantized forward (test_torch_var) to flip
+    a greedy argmax, so every id must agree."""
+    jv, jvq, tv, tvq, _, qp, _, tqp = stack
+    jq, tq8 = w8a8
+    label = np.array([3, 7])
+    f_hat_j, ids_j = JD.decode_all_scales(
+        jv, jvq, jq, qp["quant"], jnp.asarray(label), jax.random.PRNGKey(0),
+        JSamplingConfig(cfg=1.5, top_k=1), jnp.float32, return_ids=True,
+        kv_mode="int8")
+    f_hat_t, ids_t, cache = D.decode_all_scales(
+        tv, tvq, tq8, tqp["quant"], label, 0, SamplingConfig(cfg=1.5, top_k=1),
+        F32, return_ids=True, kv_mode="int8", return_cache=True, device="cpu")
+    assert isinstance(cache, QuantizedKVCache) and cache.k.dtype == torch.int8
+    np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+    np.testing.assert_allclose(f_hat_t.numpy(), np.asarray(f_hat_j),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_int8_cache_reuse_gives_same_result(stack, w8a8):
+    """A passed QuantizedKVCache, full of another decode's tokens, gives
+    the result of a fresh one: every scale reads only rows it wrote."""
+    _, _, tv, tvq, _, _, _, tqp = stack
+    tq8 = w8a8[1]
+    samp = SamplingConfig(cfg=1.5, top_k=8, top_p=0.9)
+
+    def run(labels, seed, cache=None):
+        return D.decode_all_scales(tv, tvq, tq8, tqp["quant"], labels, seed,
+                                   samp, F32, return_ids=True, kv_mode="int8",
+                                   cache=cache, return_cache=True, device="cpu")
+
+    fresh, fresh_ids, _ = run([4, 6], 1)
+    _, _, cache = run([9, 0], 2)
+    again, again_ids, same = run([4, 6], 1, cache)
+    assert same is cache
+    torch.testing.assert_close(again_ids, fresh_ids, rtol=0, atol=0)
+    torch.testing.assert_close(again, fresh, rtol=0, atol=0)
 
 
 def test_deterministic_under_seed(stack):

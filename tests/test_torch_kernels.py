@@ -6,20 +6,26 @@ conftest imports JAX, which the port does not need there):
     python -m pytest tests/test_torch_kernels.py -q -m gpu -o addopts="" --noconftest
 """
 
+import math
+
 import pytest
 import torch
 
 from sdvar_tpu_torch.ops.kernels.attention import attention_kernel, attention_plain
+from sdvar_tpu_torch.ops.kernels.matmul_int8 import int8_matmul_kernel, int8_matmul_plain
+from sdvar_tpu_torch.ops.kernels.quantize import act_quantize_kernel, act_quantize_plain
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
 
 pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
+    """The card, with full-f32 matmuls for the plain versions' yardstick;
+    the caller's TF32 setting comes back after the test."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -71,3 +77,88 @@ def test_sampler_kernel_matches_plain(cuda, top_k, top_p):
     agree = sample_kernel(logits, seeds, top_k, top_p) == sample_plain(
         logits, seeds, top_k, top_p)
     assert agree.float().mean() >= 0.999
+
+
+def _log_uniform(shape, lo, hi, dev, g):
+    u = torch.rand(shape, device=dev, generator=g)
+    return torch.exp(math.log(lo) + u * (math.log(hi) - math.log(lo)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("Lq,Lk", [(1, 1), (64, 155), (169, 424)])
+def test_attention_int8_kv_matches_plain(cuda, dtype, hd, Lq, Lk):
+    """INT8-KV branch against the plain version's fused order, k/v and
+    scales as strided slices of an int8 cache and its (depth, B, L_max)
+    scale planes, scales log-uniform in [1e-3, 1e2]. bf16: p * vs is cast
+    to bf16 on both sides, and 2e-2 of the output's size covers the sum
+    order and one bf16 rounding of o; f32: 1e-4 of the size."""
+    g = torch.Generator(device=cuda).manual_seed(Lq * 1000 + Lk + hd)
+    B, H, Lmax = 4, 3, Lk + 7
+    q = (torch.randn(B, Lq, H, hd, device=cuda, generator=g) * 0.01).to(dtype)
+    cache = torch.randint(-127, 128, (2, 1, B, Lmax, H * hd), device=cuda,
+                          generator=g, dtype=torch.int8)
+    scales = _log_uniform((2, 1, B, Lmax), 1e-3, 1e2, cuda, g)
+    k = cache[0, 0, :, :Lk].view(B, Lk, H, hd)
+    v = cache[1, 0, :, :Lk].view(B, Lk, H, hd)
+    kv_scales = (scales[0, 0, :, :Lk], scales[1, 0, :, :Lk])
+    got = attention_kernel(q, k, v, None, 0.125, kv_scales=kv_scales).float()
+    want = attention_plain(q, k, v, None, 0.125, kv_scales=kv_scales).float()
+    tol = (1e-4 if dtype == torch.float32 else 2e-2) * want.abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+def test_attention_int8_kv_bias_and_masked_row(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    B, H, hd, Lq, Lk = 2, 2, 64, 70, 90
+    q = torch.randn(B, Lq, H, hd, device=cuda, generator=g) * 0.01
+    k, v = (torch.randint(-127, 128, (Lk, B, H, hd), device=cuda, generator=g,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (_log_uniform((Lk, B), 1e-3, 1e2, cuda, g) for _ in range(2))
+    bias = torch.randn(Lq, Lk, device=cuda, generator=g)
+    bias[:, ::3] = float("-inf")
+    bias[-1] = float("-inf")
+    got = attention_kernel(q, k, v, bias, 0.125, kv_token_major=True,
+                           kv_scales=(ks, vs))
+    want = attention_plain(q, k, v, bias, 0.125, kv_token_major=True,
+                           kv_scales=(ks, vs))
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert not got[:, -1].any() and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,gelu", [(64, 7680, True), (37, 1920, False),
+                                      (5, 100, True)])
+def test_act_quantize_kernel_matches_plain(cuda, dtype, M, K, gelu):
+    """Scales within 1e-6 relative, |dq| <= 1 on fewer than 1e-3 of the
+    elements (libdevice tanh against PyTorch's: the last bits of h)."""
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    x = (torch.randn(M, K, device=cuda, generator=g) * 3).to(dtype)
+    # the bias in x's dtype: bf16 as the main path's fc1_b, widened in-kernel
+    b = torch.randn(K, device=cuda, generator=g).to(dtype) if gelu else None
+    q, s = act_quantize_kernel(x, b, gelu)
+    qp, sp = act_quantize_plain(x, b, gelu)
+    torch.testing.assert_close(s, sp, rtol=1e-6, atol=0)
+    d = (q.int() - qp.int()).abs()
+    assert d.max().item() <= 1 and (d != 0).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(2, 64, 192), (200, 1920, 272),
+                                   (130, 256, 4096)])
+def test_int8_matmul_kernel_matches_plain(cuda, x_dtype, M, K, N):
+    """Ragged M and N edges, the output in x's dtype, held against the plain
+    version's f32 sum on the same (exactly widened) x. Both sum exact
+    products in f32 and scale the sum; the order differs (1e-5 of the
+    output's size in f32) and a bf16 output rounds once (up to 2^-8 of the
+    largest output's binade, so 2^-7 of the size with the sum's order)."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, device=cuda, generator=g).to(x_dtype)
+    q = torch.randint(-127, 128, (K, N), device=cuda, generator=g,
+                      dtype=torch.int8)
+    s = torch.rand(N, device=cuda, generator=g) * 1e-2
+    got = int8_matmul_kernel(x, q, s)
+    assert got.dtype == x_dtype
+    want = int8_matmul_plain(x.float(), q, s)
+    tol = 1e-5 if x_dtype == torch.float32 else 2 ** -7
+    assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item()

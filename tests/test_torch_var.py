@@ -1,7 +1,9 @@
 """Port VAR transformer against the JAX package's: per-scale KV-cached
 forward + logits, and the uncached forward under a block-causal bias, on
 the same weights (made by the JAX initialiser, biases made non-zero) in
-f32."""
+f32; and the same cached forward with INT8 weights (w8a8, w8) and an INT8
+KV cache, on the JAX package's quantized tree carried over by the
+bridge."""
 
 import numpy as np
 import pytest
@@ -12,9 +14,11 @@ import jax.numpy as jnp
 
 from sdvar_tpu.config import VARConfig as JVARConfig
 from sdvar_tpu.models import var as JM
+from sdvar_tpu.ops import quantization as JQ
 from sdvar_tpu.ops.masks import block_causal_bias
 from sdvar_tpu_torch.config import VARConfig
 from sdvar_tpu_torch.models import var as M
+from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
 from sdvar_tpu_torch.utils.from_jax import var_params_from_jax
 
 PNS = (1, 2, 3)
@@ -85,6 +89,57 @@ def test_cached_forward_matches_per_scale(stack):
     np.testing.assert_allclose(
         tcache.k.numpy(), np.asarray(jcache.k).transpose(0, 2, 1, 3),
         rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode,kv", [("w8a8", "int8"), ("w8", "int8"),
+                                     ("w8", "f32")])
+def test_quantized_cached_forward_matches_per_scale(stack, mode, kv):
+    """INT8 weights (and an INT8 KV cache) through apply_transformer and
+    get_logits, scale by scale, against the JAX package on the same int8
+    tree, within 1e-4 * max|ref| per scale (measured: about 1e-7). The two
+    compute the same quantized function: the port's W8A8 sums are exact
+    int32 (JAX's are f32 sums of exact products, exact at these K), its fc2
+    input comes from the fused bias + GELU + quantize pass (JAX: XLA GELU,
+    then quantize), and its weight-only products scale the f32 sum instead
+    of dequantising the weight first; so an h may differ in its last bits.
+    An activation on a rounding boundary would quantize one step apart and
+    move an output by about 1e-3 of its size; none does on these inputs,
+    and the bound would catch one."""
+    jcfg, tcfg, p_np, _ = stack
+    jq = jax.tree.map(np.asarray, JQ.quantize_var_params(p_np, mode=mode))
+    tq = var_params_from_jax(jq, device="cpu")
+    rng = np.random.default_rng(5)
+    cond = rng.standard_normal((B2, jcfg.embed_dim)).astype(np.float32)
+    if kv == "int8":
+        jcache = JQ.QuantizedKVCache.create(jcfg, B2)
+        tcache = QuantizedKVCache.create(tcfg, B2, device="cpu")
+    else:
+        jcache = JM.KVCache.create(jcfg, B2, dtype=jnp.float32)
+        tcache = M.KVCache.create(tcfg, B2, dtype=torch.float32, device="cpu")
+    jmods = JM.precompute_modulations(jcfg, jq, jnp.asarray(cond))
+    tmods = M.precompute_modulations(tcfg, tq, torch.from_numpy(cond))
+    np.testing.assert_allclose(tmods.numpy(), np.asarray(jmods),
+                               rtol=1e-5, atol=1e-6)
+    for si, (bg, ed) in enumerate(jcfg.begin_ends):
+        x = rng.standard_normal((B2, ed - bg, jcfg.embed_dim)).astype(np.float32)
+        jh, jcache = JM.apply_transformer(
+            jcfg, jq, jnp.asarray(x), jnp.asarray(cond), cache=jcache,
+            cache_begin=bg, kv_len=ed, mods=jmods)
+        th = M.apply_transformer(tcfg, tq, torch.from_numpy(x),
+                                 torch.from_numpy(cond), cache=tcache,
+                                 cache_begin=bg, kv_len=ed, mods=tmods)
+        jh = np.asarray(jh)
+        assert np.abs(th.numpy() - jh).max() <= 1e-4 * np.abs(jh).max(), si
+        jl = np.asarray(JM.get_logits(jcfg, jq, jnp.asarray(jh), jnp.asarray(cond)))
+        tl = M.get_logits(tcfg, tq, th, torch.from_numpy(cond)).numpy()
+        assert np.abs(tl - jl).max() <= 1e-4 * np.abs(jl).max(), si
+    if kv == "int8":  # cache rows written so far (JAX: token-major)
+        ed = jcfg.begin_ends[-1][1]
+        dk = np.abs(tcache.k.numpy()[:, :, :ed].astype(np.int32)
+                    - np.asarray(jcache.k).transpose(0, 2, 1, 3)[:, :, :ed])
+        assert dk.max() <= 1 and (dk != 0).mean() < 1e-3
+        np.testing.assert_allclose(tcache.k_s.numpy()[:, :, :ed],
+                                   np.asarray(jcache.k_s)[:, :, :ed], rtol=1e-5)
 
 
 def test_uncached_forward_with_block_causal_bias(stack):
