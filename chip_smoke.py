@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from the sources in the checkout, holds each
-kernel against its plain PyTorch version on the card, drives the main paths
-(VAR-d30 256px class-conditional generation, B=16, random weights from a
-seed, as a server answering a few requests): in bf16, and quantized, with
-W8A8 weights and an INT8 KV cache (the JAX package's headline
-configuration), then weight-only INT8; checks the outputs, holds small
-stacks on the card against the CPU plain path, and times the kernels. The
-last stdout line is
+kernel against its plain PyTorch version on the card, and drives the port's
+paths at VAR-d30 256px (class-conditional, random weights from a seed):
+``generate_images`` on batches of B=16 requests in bf16, then quantized
+(W8A8 weights and an INT8 KV cache, the JAX package's headline
+configuration, and weight-only INT8); then the continuous-batching
+``GenerationServer`` answering requests, all-int8 (W8A8 + INT8 KV with the
+calibrated W8A8 pixel decoder, uint8 delivery) and bf16. It checks the
+outputs and the kernel launch counts of each path, holds small stacks on
+the card against the CPU plain path, times the three pixel decoders and the
+kernels. The last stdout line is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the script
 exits non-zero without printing it. It needs a CUDA card and the
 ``sdvar_tpu_torch`` package beside it, and imports nothing of JAX.
@@ -25,18 +28,26 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
 from sdvar_tpu_torch.engine.decode import decode_all_scales, generate_images
-from sdvar_tpu_torch.models.var import init_var_params
-from sdvar_tpu_torch.models.vqvae import fhat_to_img, init_vqvae_params
+from sdvar_tpu_torch.engine.serving import GenerationServer
+from sdvar_tpu_torch.models.var import apply_transformer, get_logits, init_var_params
+from sdvar_tpu_torch.models.vqvae import (
+    calibrate_decoder_w8a8,
+    fhat_to_img,
+    fhat_to_img_nhwc,
+    fhat_to_img_nhwc_w8a8_static,
+    init_vqvae_params,
+)
 from sdvar_tpu_torch.ops.kernels import _build
-from sdvar_tpu_torch.models.var import apply_transformer, get_logits
 from sdvar_tpu_torch.ops.kernels.attention import (
     attention_kernel,
     attention_plain,
     smem_bytes,
 )
+from sdvar_tpu_torch.ops.kernels.conv_s8 import conv3x3_s8_kernel, conv3x3_s8_plain
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import (
     int8_matmul_kernel,
     int8_matmul_plain,
@@ -56,10 +67,12 @@ from sdvar_tpu_torch.ops.quantization import (
 from sdvar_tpu_torch.utils.device import full_f32
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
-# f32 FLOP/s outside the tensor cores; and the int32 instruction rate from
-# the SM's unit counts: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost
+# int8 tensor-core OP/s, f32 FLOP/s outside the tensor cores; and the int32
+# instruction rate from the SM's unit counts: 64 INT32 lanes per SM x 132
+# SMs x 1.98 GHz boost
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 F32_FLOPS = 67e12
 INT32_OPS = 64 * 132 * 1.98e9
 
@@ -145,6 +158,16 @@ def attention_int8_bound(Bq, Lq, Lk, H, hd):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def conv3x3_s8_bound(B, H, W, C, O, out_itemsize):
+    """(bound ms, bound_by): int8 x and weights, f32 scale and bias read
+    once, the output written once, vs 2*B*H*W*9*C*O int8 operations at the
+    int8 tensor-core peak."""
+    nbytes = B * H * W * (C + O * out_itemsize) + 9 * C * O + 8 * O
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 2 * B * H * W * 9 * C * O / INT8_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_device_and_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -154,10 +177,11 @@ def phase_device_and_build():
     log(f"[device] torch: {name}, {torch.cuda.device_count()} card(s), "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    _build.build(["attention", "matmul_int8"])  # one nvcc each, together
-    log(f"[build] csrc/attention.cu and csrc/matmul_int8.cu built in "
-        f"{time.time() - t0:.1f} s")
-    for src in ("attention", "matmul_int8"):
+    sources = ("attention", "matmul_int8", "conv_s8")
+    _build.build(sources)  # one nvcc each, all started together
+    log(f"[build] csrc/attention.cu, csrc/matmul_int8.cu and csrc/conv_s8.cu "
+        f"built in {time.time() - t0:.1f} s")
+    for src in sources:
         for line in _build.build_log(src).splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling")):
@@ -344,10 +368,45 @@ def phase_quant_kernel_checks():
     return errs
 
 
+CONV_SHAPES = ((2, 16, 32, 8, 12), (1, 8, 64, 4, 4), (2, 24, 32, 12, 8),
+               (1, 16, 32, 160, 3), (16, 256, 256, 160, 160))
+CONV_FULL = CONV_SHAPES[-1]  # the pixel decoder's top level at B=16
+
+
+def phase_conv_checks():
+    """The INT8 conv kernel against its plain version, f32 and bf16 output,
+    bit-equal required: both form the exact s32 sums and round x * scale
+    and + bias separately, then cast once."""
+    g = torch.Generator(device=DEV).manual_seed(3)
+    errs = {}
+    for shape in CONV_SHAPES:
+        Bc, H, W, C, O = shape
+        x8 = torch.randint(-127, 128, (Bc, H, W, C), device=DEV, generator=g,
+                           dtype=torch.int8)
+        wk = torch.randint(-127, 128, (O, 3, 3, C), device=DEV, generator=g,
+                           dtype=torch.int8)
+        scale = torch.rand(O, device=DEV, generator=g) * 2e-3
+        bias = torch.randn(O, device=DEV, generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = conv3x3_s8_kernel(x8, wk, scale, bias, dtype)
+            torch.cuda.synchronize()
+            want = conv3x3_s8_plain(x8, wk, scale, bias, dtype)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = torch.equal(got, want)
+            log(f"[check] conv3x3_s8 {str(dtype)[6:]} (B,H,W,C,O)={shape}: "
+                f"max|d|={err:.3e} bit-equal {ok} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"conv3x3_s8 kernel disagrees at {shape}")
+            errs[("conv3x3_s8", dtype, shape)] = err
+        del x8, wk, got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
 def _reset_counts():
     attention_kernel.launches = attention_kernel.launches_int8 = 0
     act_quantize_kernel.launches = int8_matmul_kernel.launches = 0
-    sample_kernel.launches = 0
+    sample_kernel.launches = conv3x3_s8_kernel.launches = 0
 
 
 def _read_counts():
@@ -355,7 +414,8 @@ def _read_counts():
             "attention_int8": attention_kernel.launches_int8,
             "act_quantize": act_quantize_kernel.launches,
             "int8_matmul": int8_matmul_kernel.launches,
-            "sampler": sample_kernel.launches}
+            "sampler": sample_kernel.launches,
+            "conv3x3_s8": conv3x3_s8_kernel.launches}
 
 
 def _time_decodes(name, var_cfg, vae_cfg, params, vae, samp, batch, kv_mode,
@@ -436,7 +496,8 @@ def phase_quant_path(name):
     S = len(PNS)
     want = {"attention": 0, "attention_int8": S * DEPTH * N_BATCHES,
             "act_quantize": 4 * S * DEPTH * N_BATCHES,
-            "int8_matmul": S * N_BATCHES, "sampler": S * N_BATCHES}
+            "int8_matmul": S * N_BATCHES, "sampler": S * N_BATCHES,
+            "conv3x3_s8": 0}
     if launches != want:
         raise AssertionError(f"w8a8 path launch counts {launches} != {want}")
     for img in imgs:
@@ -474,7 +535,7 @@ def phase_quant_path(name):
     log(f"[quant] kernel launches over one w8 + int8-KV decode: {w8}")
     # four block matmuls per layer and the head: 1200 + 10
     want = {"attention": 0, "attention_int8": S * DEPTH, "act_quantize": 0,
-            "int8_matmul": 4 * S * DEPTH + S, "sampler": S}
+            "int8_matmul": 4 * S * DEPTH + S, "sampler": S, "conv3x3_s8": 0}
     if w8 != want:
         raise AssertionError(f"w8 path launch counts {w8} != {want}")
     _time_decodes(name, var_cfg, vae_cfg, params, vae, samp, B, "int8", False,
@@ -502,8 +563,7 @@ def phase_main_path(name):
     generate_images(var_cfg, vae_cfg, params, vae, labels[0], 0, samp)
     torch.cuda.synchronize()
 
-    attention_kernel.launches = 0
-    sample_kernel.launches = 0
+    _reset_counts()
     imgs = []
     for lab, seed in zip(labels, seeds):
         t0 = time.time()
@@ -512,12 +572,12 @@ def phase_main_path(name):
         imgs.append(img)
         log(f"[main] request batch seed={seed}: {tuple(img.shape)} in "
             f"{(time.time() - t0) * 1e3:.1f} ms")
-    launches = {"attention": attention_kernel.launches,
-                "sampler": sample_kernel.launches}
+    launches = _read_counts()
     log(f"[main] kernel launches over {N_BATCHES} decodes: {launches}")
-    if launches != {"attention": 300 * N_BATCHES, "sampler": 10 * N_BATCHES}:
-        raise AssertionError(f"main path launch counts {launches} != "
-                             f"{300 * N_BATCHES} attention, {10 * N_BATCHES} sampler")
+    want = {k: 0 for k in launches}
+    want.update(attention=300 * N_BATCHES, sampler=10 * N_BATCHES)
+    if launches != want:
+        raise AssertionError(f"main path launch counts {launches} != {want}")
     for img in imgs:
         if img.shape != (B, 3, 256, 256) or not torch.isfinite(img).all() \
                 or img.min() < 0 or img.max() > 1:
@@ -556,6 +616,211 @@ def phase_main_path(name):
         f"peak memory {peak:.2f} GiB")
     del params, vae
     return launches
+
+
+SERVE_B = 16        # bench_serving's bucket: one bucket of 16 requests
+
+
+def _serve(srv, requests, timeout=900.0):
+    """Submit (label, seed) pairs at once, wait for all; the results and the
+    wall time from the first submit to the last result."""
+    t0 = time.time()
+    rids = [srv.submit(label=lab, seed=seed) for lab, seed in requests]
+    results = [srv.get(rid, timeout=timeout) for rid in rids]
+    return results, time.time() - t0
+
+
+def _check_results(results, tag):
+    """Every result ok, a (3, 256, 256) uint8 image; raises otherwise."""
+    for r in results:
+        if not r.ok:
+            raise AssertionError(f"[{tag}] request {r.id} failed: {r.error}")
+        if r.image.shape != (3, 256, 256) or r.image.dtype.name != "uint8":
+            raise AssertionError(f"[{tag}] request {r.id}: image "
+                                 f"{r.image.shape} {r.image.dtype}")
+
+
+def _serve_measured(srv, requests, tag, per_batch):
+    """Drive the server's path once: counts set to 0 just before, read just
+    after; assert ``per_batch`` launches for each batch run; print
+    delivered img/s, p50/p95 latency, occupancy, peak memory."""
+    b0, occ0 = srv.stats["batches"], srv.stats["occupancy_sum"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    results, wall = _serve(srv, requests)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _check_results(results, tag)
+    nb = srv.stats["batches"] - b0
+    want = {k: per_batch.get(k, 0) * nb for k in launches}
+    log(f"[{tag}] kernel launches over {nb} batches: {launches}")
+    if launches != want:
+        raise AssertionError(f"[{tag}] launch counts {launches} != {want}")
+    lat = sorted(r.latency_s * 1e3 for r in results)
+    occ = (srv.stats["occupancy_sum"] - occ0) / nb
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] {len(requests)} requests in {wall:.3f} s: "
+        f"{len(requests) / wall:.2f} img/s delivered, latency p50 "
+        f"{lat[len(lat) // 2]:.1f} ms p95 {lat[int(len(lat) * 0.95)]:.1f} ms "
+        f"max {lat[-1]:.1f} ms, {nb} batches, occupancy {occ:.3f}, "
+        f"peak memory {peak:.2f} GiB")
+    return results, launches
+
+
+def _pixel_decoders(vae_cfg, vae, f_hat, sites):
+    """The three pixel decoders on one B=16 f_hat: print their ms (CUDA
+    events, best of 3 after a warm-up) and the |d| of the bf16 and W8A8
+    images against the f32 golden one; return the conv launches per W8A8
+    decode."""
+    runs = {"fhat_to_img (f32 golden)": lambda: fhat_to_img(vae_cfg, vae, f_hat),
+            "fhat_to_img_nhwc (bf16)": lambda: fhat_to_img_nhwc(vae_cfg, vae, f_hat),
+            "fhat_to_img_nhwc_w8a8_static": lambda: fhat_to_img_nhwc_w8a8_static(
+                vae_cfg, vae, f_hat, sites)}
+    imgs = {}
+    with torch.inference_mode():
+        for name, fn in runs.items():
+            imgs[name] = fn()
+            ms = [cuda_ms(fn, 1, warmup=0) for _ in range(3)]
+            log(f"[pixels] {name} B={f_hat.shape[0]}: {min(ms):.3f} ms (runs "
+                f"{', '.join(f'{t:.3f}' for t in ms)})")
+        conv3x3_s8_kernel.launches = 0
+        fhat_to_img_nhwc_w8a8_static(vae_cfg, vae, f_hat, sites)
+        torch.cuda.synchronize()
+    per_decode = conv3x3_s8_kernel.launches
+    gold = imgs["fhat_to_img (f32 golden)"]
+    for name in list(runs)[1:]:
+        d = (imgs[name] - gold).abs()
+        if imgs[name].shape != gold.shape or not torch.isfinite(imgs[name]).all():
+            raise AssertionError(f"[pixels] {name}: bad image")
+        log(f"[pixels] {name} against the golden decoder, images in [-1, 1]: "
+            f"mean |d| {d.mean().item():.5f}, max |d| {d.max().item():.5f}")
+    log(f"[pixels] conv3x3_s8 launches per W8A8 pixel decode: {per_decode}")
+    return per_decode
+
+
+def _repeat_check(first, again):
+    """Images of the same requests from two batches must be bit-equal: a
+    request's pixels depend on its (label, seed) alone."""
+    differ = [i for i, (a, b) in enumerate(zip(first, again))
+              if not (a == b).all()]
+    log(f"[serve int8] {len(first)} requests again in another batch: "
+        f"{len(first) - len(differ)} images bit-equal")
+    if differ:
+        d = abs(first[differ[0]].astype(int) - again[differ[0]].astype(int))
+        raise AssertionError(f"{len(differ)} resubmitted requests gave other "
+                             f"images, the first max |d| {d.max()} u8 steps")
+
+
+def phase_serving(name):
+    """The continuous-batching server at VAR-d30 256px: all-int8 (W8A8 +
+    INT8 KV cache, the pixel decoder's sites calibrated with alpha=0.75,
+    min_w=256 on two B=8 decodes, bucket 16, uint8 delivery:
+    tools/bench_serving.py's pixq mode), then bf16 (channels-last bf16
+    pixels)."""
+    var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    params = _quantized_var(var_cfg, "w8a8")
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    t0 = time.time()
+    cal = [decode_all_scales(var_cfg, vae_cfg, params, vae["quant"],
+                             torch.arange(8) + 100 * i, 40 + i, samp,
+                             kv_mode="int8") for i in range(2)]
+    sites = calibrate_decoder_w8a8(vae_cfg, vae, cal, alpha=0.75, min_w=256)
+    n_q = sum(s is not None for s in sites)
+    log(f"[serve] calibrated {len(sites)} pixel-decoder sites on two B=8 "
+        f"decodes in {time.time() - t0:.1f} s: {n_q} quantized (min_w=256)")
+    if len(sites) != 29 or n_q != 8:
+        raise AssertionError(f"expected 29 sites, 8 quantized; got "
+                             f"{len(sites)}, {n_q}")
+
+    srv = GenerationServer(var_cfg, vae_cfg, params, vae, samp=samp,
+                           max_batch=SERVE_B, buckets=[SERVE_B],
+                           max_wait_ms=20.0, dtype=torch.bfloat16,
+                           kv_mode="int8", pixel_sites=sites, deliver="u8")
+    srv.start()
+    try:
+        t0 = time.time()
+        warm, _ = _serve(srv, [(i, 1000 + i) for i in range(SERVE_B)])
+        _check_results(warm, "serve int8")
+        log(f"[serve int8] warm-up bucket of {SERVE_B}: {time.time() - t0:.1f} s")
+        reqs = [((i * 37) % 1000, 10_000 + i) for i in range(3 * SERVE_B)]
+        S = len(PNS)
+        results, launches = _serve_measured(
+            srv, reqs, "serve int8",
+            {"attention_int8": S * DEPTH, "act_quantize": 4 * S * DEPTH,
+             "int8_matmul": S, "sampler": S, "conv3x3_s8": 8})
+        # the same (label, seed) pairs again, 16 of them drawn from all
+        # three batches, in another order and composition
+        pick = [47, 3, 30, 12, 25, 40, 8, 19, 33, 1, 44, 16, 27, 6, 38, 21]
+        again, _ = _serve(srv, [reqs[i] for i in pick])
+        _check_results(again, "serve int8")
+        _repeat_check([results[i].image for i in pick],
+                      [r.image for r in again])
+    finally:
+        srv.stop()
+
+    with torch.inference_mode():
+        f_hat = decode_all_scales(var_cfg, vae_cfg, params, vae["quant"],
+                                  torch.arange(SERVE_B) * 61 % 1000, 7, samp,
+                                  kv_mode="int8")
+    per_decode = _pixel_decoders(vae_cfg, vae, f_hat, sites)
+    del params, srv, cal, f_hat
+    torch.cuda.empty_cache()
+
+    params = init_var_params(var_cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+    srv = GenerationServer(var_cfg, vae_cfg, params, vae, samp=samp,
+                           max_batch=SERVE_B, buckets=[SERVE_B],
+                           max_wait_ms=20.0, dtype=torch.bfloat16,
+                           deliver="u8")
+    srv.start()
+    try:
+        warm, _ = _serve(srv, [(i, 2000 + i) for i in range(SERVE_B)])
+        _check_results(warm, "serve bf16")
+        _serve_measured(srv, [((i * 53) % 1000, 20_000 + i)
+                              for i in range(2 * SERVE_B)], "serve bf16",
+                        {"attention": len(PNS) * DEPTH, "sampler": len(PNS)})
+    finally:
+        srv.stop()
+    del params, vae, srv
+    torch.cuda.empty_cache()
+    return launches["conv3x3_s8"], per_decode
+
+
+def phase_conv_times(launches, per_decode, errs):
+    """conv3x3_s8 at the pixel decoder's top level, B=16: kernel, plain
+    (f64 convolution), bound, and the bf16 cuDNN convolution the site
+    replaces (channels-last, same shape)."""
+    Bc, H, W, C, O = CONV_FULL
+    g = torch.Generator(device=DEV).manual_seed(4)
+    x8 = torch.randint(-127, 128, (Bc, H, W, C), device=DEV, generator=g,
+                       dtype=torch.int8)
+    wk = torch.randint(-127, 128, (O, 3, 3, C), device=DEV, generator=g,
+                       dtype=torch.int8)
+    scale = torch.rand(O, device=DEV, generator=g) * 2e-3
+    bias = torch.randn(O, device=DEV, generator=g)
+    k_ms = cuda_ms(lambda: conv3x3_s8_kernel(x8, wk, scale, bias), 20)
+    p_ms = cuda_ms(lambda: conv3x3_s8_plain(x8, wk, scale, bias), 2, warmup=1)
+    xb = torch.randn(Bc, C, H, W, device=DEV, generator=g).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    wb = torch.randn(O, C, 3, 3, device=DEV, generator=g).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    bb = bias.to(torch.bfloat16)
+    c_ms = cuda_ms(lambda: F.conv2d(xb, wb, bb, padding=1), 20)
+    bound, by = conv3x3_s8_bound(Bc, H, W, C, O, 2)
+    log(f"[time] conv3x3_s8 (B={Bc} H={H} W={W} C={C} O={O}, int8 -> bf16): "
+        f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms none "
+        f"bound_ms {bound:.4f} ({by}); bf16_conv_ms {c_ms:.4f} (F.conv2d, "
+        f"cuDNN, channels-last bf16, the conv the site replaces); launches "
+        f"per W8A8 pixel decode {per_decode}")
+    return {"name": "conv3x3_s8", "route": "cuda",
+            "source": "sdvar_tpu_torch/csrc/conv_s8.cu",
+            "replaces": "sdvar_tpu/ops/pallas/conv_s8.py:58",
+            "launches": launches,
+            "max_abs_err": errs[("conv3x3_s8", torch.bfloat16, CONV_FULL)],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "bf16_conv_ms": c_ms,
+            "launches_per_pixel_decode": per_decode}
 
 
 def phase_small_reference():
@@ -829,12 +1094,15 @@ def main() -> int:
     with full_f32():  # the plain f32 versions' products, as the kernels'
         errs, smp = phase_kernel_checks()
         errs.update(phase_quant_kernel_checks())
+    errs.update(phase_conv_checks())
     launches = phase_main_path(name)
     launches.update(phase_quant_path(name))
+    conv_launches, per_decode = phase_serving(name)
     phase_small_reference()
     phase_small_reference_quant()
     with full_f32():
         kernels = phase_kernel_times(launches, errs, smp)
+    kernels.append(phase_conv_times(conv_launches, per_decode, errs))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

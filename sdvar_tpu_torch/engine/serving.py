@@ -1,0 +1,303 @@
+"""Continuous batching of image-generation requests (the counterpart of
+``sdvar_tpu/engine/serving.py``).
+
+A scheduler thread coalesces requests that arrive asynchronously into
+batches of a fixed bucket size, runs the KV-cached decode on each (one
+reused KV cache per bucket) and the pixel decoder, and enqueues the images'
+copy to pinned host memory; a delivery thread waits for that copy alone and
+hands each request its ``Result``. So batch N's copy and delivery overlap
+batch N+1's decode, which the scheduler has already queued on the card.
+
+Determinism: each request carries its own seed, and the decode's sampling
+noise for a row depends only on (seed, scale, token), so a request's image
+is a function of (label, seed, sampling config), whichever batch of a
+bucket size it lands in (the channels-last pixel decoders run their
+narrow convs one image per call for this: ``models.vqvae.PER_IMAGE_MAX_W``).
+Padding slots run label 0 with seed 0 and are dropped.
+
+Pixel decoders: a bf16 server decodes pixels with the channels-last bf16
+decoder, or, given calibrated ``pixel_sites``, the W8A8 one
+(``models.vqvae.calibrate_decoder_w8a8``); an f32 server keeps the golden
+f32 NCHW decoder. Speculative mode (``draft_cfg``/``draft_params``/
+``spec``) and mesh mode (``mesh_cfg``) are not ported.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
+from sdvar_tpu_torch.engine import decode as D
+from sdvar_tpu_torch.models import vqvae as VQ
+from sdvar_tpu_torch.models.var import KVCache
+from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
+from sdvar_tpu_torch.utils.device import resolve_device
+
+
+@dataclass
+class Request:
+    label: int
+    seed: int
+    id: int = -1
+    submit_t: float = field(default_factory=time.time)
+
+
+@dataclass
+class Result:
+    id: int
+    image: Optional[np.ndarray]  # (3, H, W) f32 in [0, 1] or uint8; None on failure
+    latency_s: float
+    batch_size: int
+    error: Optional[str] = None  # failure payload (exception type: message)
+
+    @property
+    def ok(self) -> bool:
+        return self.error is None
+
+
+class GenerationServer:
+    """Host-side continuous-batching scheduler over the decode.
+
+    Usage:
+        srv = GenerationServer(var_cfg, vae_cfg, var_params, vae_params)
+        srv.start()
+        rid = srv.submit(label=207, seed=42)
+        result = srv.get(rid, timeout=60)
+        srv.stop()
+    """
+
+    def __init__(
+        self,
+        var_cfg: VARConfig, vae_cfg: VQVAEConfig,
+        var_params, vae_params,
+        samp: SamplingConfig = SamplingConfig(),
+        max_batch: int = 8,
+        max_wait_ms: float = 5.0,
+        buckets: Optional[List[int]] = None,
+        dtype=torch.bfloat16,
+        kv_mode: str = "bf16",
+        draft_cfg: Optional[VARConfig] = None,
+        draft_params=None,
+        spec=None,
+        mesh_cfg=None,
+        pixel_sites=None,
+        deliver: str = "f32",
+        device="cuda",
+    ):
+        if draft_cfg is not None or draft_params is not None or spec is not None:
+            raise NotImplementedError(
+                "speculative serving is not ported (ROADMAP Queue 1 item 9)")
+        if mesh_cfg is not None:
+            raise NotImplementedError(
+                "mesh serving is not ported (ROADMAP Queue 1 item 13)")
+        if deliver not in ("f32", "u8"):
+            raise ValueError(f"deliver={deliver!r} (f32 | u8)")
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"dtype {dtype} (bfloat16 | float32)")
+        if pixel_sites is not None and dtype != torch.bfloat16:
+            raise ValueError("pixel_sites need a bf16 server: an f32 server "
+                             "decodes pixels with the f32 golden decoder")
+        self.buckets = sorted(buckets or [1, 2, 4, 8])
+        if max_batch > self.buckets[-1]:
+            raise ValueError(f"max_batch {max_batch} exceeds the largest "
+                             f"bucket {self.buckets[-1]}")
+        self.device = resolve_device(device)
+        self.var_cfg, self.vae_cfg = var_cfg, vae_cfg
+        self.var_params, self.vae_params = var_params, vae_params
+        self.samp = samp
+        self.max_batch = max_batch
+        self.max_wait = max_wait_ms / 1e3
+        self.dtype = dtype
+        self.kv_mode = kv_mode
+        self.pixel_sites = None if pixel_sites is None else tuple(pixel_sites)
+        # "f32": Result.image is (3, H, W) f32 in [0, 1]; "u8": quantized on
+        # the device, (3, H, W) uint8, a quarter of the bytes to copy
+        self.deliver = deliver
+
+        self._caches: Dict[int, object] = {}  # per-bucket reused KV caches
+        self._q: "queue.Queue[Request]" = queue.Queue()
+        self._results: Dict[int, Result] = {}
+        self._results_cv = threading.Condition()
+        self._next_id = 0
+        self._id_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._deliver_stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # bounded, so that a slow host cannot pile up batches in flight
+        self._deliver_q: "queue.Queue" = queue.Queue(maxsize=2)
+        self._deliver_thread: Optional[threading.Thread] = None
+        self.stats = {"completed": 0, "batches": 0, "occupancy_sum": 0.0}
+        # updated from both threads
+        self._stats_lock = threading.Lock()
+
+    # -- public API ---------------------------------------------------------
+
+    def start(self):
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._deliver_thread = threading.Thread(target=self._deliver_loop,
+                                                daemon=True)
+        self._thread.start()
+        self._deliver_thread.start()
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        # the delivery loop drains every queued batch before it exits; a
+        # thread wedged on the card is abandoned by the bounded join
+        self._deliver_stop.set()
+        if self._deliver_thread is not None:
+            self._deliver_thread.join(timeout=30)
+
+    def submit(self, label: int, seed: int) -> int:
+        with self._id_lock:
+            rid = self._next_id
+            self._next_id += 1
+        self._q.put(Request(label=label, seed=seed, id=rid))
+        return rid
+
+    def get(self, rid: int, timeout: float = 120.0) -> Result:
+        deadline = time.time() + timeout
+        with self._results_cv:
+            while rid not in self._results:
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    raise TimeoutError(f"request {rid}")
+                self._results_cv.wait(remaining)
+            return self._results.pop(rid)
+
+    # -- scheduler ----------------------------------------------------------
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def _collect(self) -> List[Request]:
+        try:
+            first = self._q.get(timeout=0.05)
+        except queue.Empty:
+            return []
+        batch = [first]
+        deadline = time.time() + self.max_wait
+        while len(batch) < self.max_batch:
+            remaining = deadline - time.time()
+            if remaining <= 0:
+                break
+            try:
+                batch.append(self._q.get(timeout=remaining))
+            except queue.Empty:
+                break
+        return batch
+
+    def _cache(self, bsz: int):
+        """The bucket's KV cache (2 * bsz rows under CFG), made on first
+        use; the scheduler thread holds the only reference while a batch
+        runs."""
+        cache = self._caches.pop(bsz, None)
+        if cache is not None:
+            return cache
+        if self.kv_mode == "int8":
+            return QuantizedKVCache.create(self.var_cfg, 2 * bsz, device=self.device)
+        return KVCache.create(self.var_cfg, 2 * bsz, dtype=self.dtype,
+                              device=self.device)
+
+    def _pixels(self, f_hat: torch.Tensor) -> torch.Tensor:
+        if self.pixel_sites is not None:
+            return VQ.fhat_to_img_nhwc_w8a8_static(
+                self.vae_cfg, self.vae_params, f_hat, self.pixel_sites)
+        if self.dtype == torch.bfloat16:
+            return VQ.fhat_to_img_nhwc(self.vae_cfg, self.vae_params, f_hat)
+        return VQ.fhat_to_img(self.vae_cfg, self.vae_params, f_hat)
+
+    @torch.inference_mode()
+    def _run_batch(self, batch: List[Request]):
+        bsz = self._bucket_for(len(batch))
+        labels = torch.zeros(bsz, dtype=torch.long)
+        seeds = torch.zeros(bsz, dtype=torch.long)
+        for i, r in enumerate(batch):
+            labels[i] = r.label
+            seeds[i] = r.seed & 0xFFFFFFFF
+        f_hat, cache = D.decode_all_scales(
+            self.var_cfg, self.vae_cfg, self.var_params,
+            self.vae_params["quant"], labels.to(self.device),
+            seeds.to(self.device), self.samp, self.dtype,
+            kv_mode=self.kv_mode, cache=self._cache(bsz), return_cache=True,
+            device=self.device)
+        self._caches[bsz] = cache
+        imgs = (self._pixels(f_hat) + 1.0) * 0.5
+        if self.deliver == "u8":
+            imgs = torch.clamp(imgs * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+        done = None
+        if imgs.is_cuda:
+            # queue the copy behind this batch's work now and mark its end:
+            # the delivery thread waits for this event only, not for the
+            # next batch's decode that this thread queues meanwhile
+            host = torch.empty(imgs.shape, dtype=imgs.dtype, pin_memory=True)
+            host.copy_(imgs, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            imgs = host
+        self._deliver_q.put((batch, imgs, done, bsz))
+
+    def _deliver(self, batch: List[Request], imgs: torch.Tensor, done, bsz: int):
+        if done is not None:
+            done.synchronize()  # a fault of the batch's device work raises here
+        arr = imgs.numpy().copy()  # the pinned buffer goes back to its pool
+        now = time.time()
+        with self._results_cv:
+            for i, r in enumerate(batch):
+                self._results[r.id] = Result(
+                    id=r.id, image=arr[i], latency_s=now - r.submit_t,
+                    batch_size=bsz)
+            self._results_cv.notify_all()
+        with self._stats_lock:
+            self.stats["completed"] += len(batch)
+            self.stats["batches"] += 1
+            self.stats["occupancy_sum"] += len(batch) / bsz
+
+    def _fail(self, batch: List[Request], err: str):
+        now = time.time()
+        with self._results_cv:
+            for r in batch:
+                self._results[r.id] = Result(
+                    id=r.id, image=None, latency_s=now - r.submit_t,
+                    batch_size=0, error=err)
+            self._results_cv.notify_all()
+        with self._stats_lock:
+            self.stats["failed"] = self.stats.get("failed", 0) + len(batch)
+        print(f"[serving] batch failed: {err}", flush=True)
+
+    def _deliver_loop(self):
+        while True:
+            try:
+                item = self._deliver_q.get(timeout=0.25)
+            except queue.Empty:
+                if self._deliver_stop.is_set():
+                    return  # drained and told to stop
+                continue
+            batch = item[0]
+            try:
+                self._deliver(*item)
+            except Exception as e:  # a device fault surfaces at the sync
+                self._fail(batch, f"{type(e).__name__}: {e}")
+
+    def _loop(self):
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)  # a new thread starts on cuda:0
+        while not self._stop.is_set():
+            batch = self._collect()
+            if not batch:
+                continue
+            try:
+                self._run_batch(batch)
+            except Exception as e:  # deliver the error payload to waiters
+                self._fail(batch, f"{type(e).__name__}: {e}")

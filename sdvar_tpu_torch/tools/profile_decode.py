@@ -5,7 +5,10 @@
 ``--mode``: bf16 weights and KV cache (the default), or the weights
 quantized by ``quantize_var_params(mode=...)`` with an INT8 KV cache. Warms
 up with one ``generate_images``, then profiles the latent decode
-(``decode_all_scales``) and the pixel decode (``fhat_to_img``) in two
+(``decode_all_scales``) and the three pixel decoders (the f32 golden
+``fhat_to_img``, the channels-last bf16 ``fhat_to_img_nhwc`` and the W8A8
+``fhat_to_img_nhwc_w8a8_static`` with sites calibrated on two B=8 decodes,
+``alpha=0.75, min_w=256``, each after a warm-up call) in
 ``torch.profiler`` windows (CPU + CUDA activities). For each window it
 prints the host wall time, the summed device time and launch count of all
 kernels, the device time's share of the wall time (the device's busy
@@ -26,7 +29,13 @@ from torch.profiler import ProfilerActivity, profile
 from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
 from sdvar_tpu_torch.engine.decode import decode_all_scales, generate_images
 from sdvar_tpu_torch.models.var import init_var_params
-from sdvar_tpu_torch.models.vqvae import fhat_to_img, init_vqvae_params
+from sdvar_tpu_torch.models.vqvae import (
+    calibrate_decoder_w8a8,
+    fhat_to_img,
+    fhat_to_img_nhwc,
+    fhat_to_img_nhwc_w8a8_static,
+    init_vqvae_params,
+)
 from sdvar_tpu_torch.ops.quantization import quantize_var_params
 
 BATCH = 16  # requests per batch (2B = 32 rows under CFG)
@@ -37,6 +46,7 @@ _CATEGORIES = (  # (category, substrings of the kernel name), first match wins
     ("port sampler kernel", ("fused_sample_kernel",)),
     ("port int8 matmul kernel", ("int8_matmul_bf16_kernel", "int8_matmul_f32_kernel")),
     ("port act-quant kernel", ("act_quantize_kernel",)),
+    ("port int8 conv kernel", ("conv3x3_s8_kernel",)),
     ("int8 GEMM (cuBLASLt, _int_mm)", ("s8", "i8", "imma", "int8")),
     ("convolution", ("fprop", "fft", "conv", "dgrad")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
@@ -101,9 +111,20 @@ def main() -> None:
     f_hat = _report("latent decode (decode_all_scales)", lambda: decode_all_scales(
         var_cfg, vae_cfg, params, vae["quant"], labels, 1, samp,
         kv_mode=kv_mode), TOP)
+    cal = [decode_all_scales(var_cfg, vae_cfg, params, vae["quant"],
+                             torch.arange(8) + 100 * i, 40 + i, samp,
+                             kv_mode=kv_mode) for i in range(2)]
+    sites = calibrate_decoder_w8a8(vae_cfg, vae, cal, alpha=0.75, min_w=256)
+    pixels = {
+        "fhat_to_img": lambda: fhat_to_img(vae_cfg, vae, f_hat),
+        "fhat_to_img_nhwc": lambda: fhat_to_img_nhwc(vae_cfg, vae, f_hat),
+        "fhat_to_img_nhwc_w8a8_static": lambda: fhat_to_img_nhwc_w8a8_static(
+            vae_cfg, vae, f_hat, sites),
+    }
     with torch.inference_mode():
-        _report("pixel decode (fhat_to_img)",
-                lambda: fhat_to_img(vae_cfg, vae, f_hat), TOP)
+        for name, fn in pixels.items():
+            fn()
+            _report(f"pixel decode ({name})", fn, TOP)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sdvar_tpu_torch.ops.conv_s8 import SITE_KEYS, site_from_arrays
 from sdvar_tpu_torch.ops.quantization import QuantizedLinear, W8A8Linear, as_w8a8
 from sdvar_tpu_torch.utils.device import resolve_device
 
@@ -69,3 +70,27 @@ def vqvae_params_from_jax(tree, device="cuda"):
     _check_keys(tree, _VQVAE_KEYS, "VQVAE")
     _check_keys(tree["quant"], ("codebook", "phi_w", "phi_b"), "quantizer")
     return _convert(tree, resolve_device(device))
+
+
+def pixel_sites_from_jax(sites, device="cuda"):
+    """W8A8 pixel-decoder sites of the JAX package's
+    ``calibrate_decoder_w8a8`` (a sequence of dicts of numpy ``wq`` int8,
+    ``scale``, ``bias``, ``act_inv``, or ``None``) -> the port's tuple of
+    ``ConvSite`` or ``None``, in the same order."""
+    dev = resolve_device(device)
+    out = []
+    for i, site in enumerate(sites):
+        if site is None:
+            out.append(None)
+            continue
+        if not isinstance(site, dict) or set(site) != set(SITE_KEYS):
+            raise TypeError(f"pixel site {i}: expected a dict of {SITE_KEYS} "
+                            f"or None, got {type(site).__name__} "
+                            f"{sorted(site) if isinstance(site, dict) else ''}")
+        wq = np.asarray(site["wq"])
+        if wq.dtype != np.int8 or wq.ndim != 4 or wq.shape[:2] != (3, 3):
+            raise TypeError(f"pixel site {i}: wq must be int8 (3, 3, C, O), "
+                            f"got {wq.dtype} {wq.shape}")
+        floats = {k: np.asarray(site[k], np.float32) for k in SITE_KEYS[1:]}
+        out.append(site_from_arrays({"wq": wq, **floats}, dev))
+    return tuple(out)

@@ -40,6 +40,7 @@ def test_import_leaves_jax_out():
         "import sys; sys.path.insert(0, sys.argv[1]);"
         "import sdvar_tpu_torch.engine.decode, sdvar_tpu_torch.utils.from_jax;"
         "import sdvar_tpu_torch.models.vqvae, sdvar_tpu_torch.ops.kernels._build;"
+        "import sdvar_tpu_torch.engine.serving, sdvar_tpu_torch.ops.conv_s8;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sdvar_tpu')];"
         "assert not bad, bad"
@@ -68,3 +69,20 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     vae = init_vqvae_params(vae_cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         generate_images(cfg, vae_cfg, params, vae, [0])
+
+
+def test_server_raises_without_a_card(monkeypatch):
+    from sdvar_tpu_torch.config import VARConfig, VQVAEConfig
+    from sdvar_tpu_torch.engine.serving import GenerationServer
+    from sdvar_tpu_torch.models.var import init_var_params
+    from sdvar_tpu_torch.models.vqvae import init_vqvae_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = VARConfig(depth=1, patch_nums=(1, 2), vocab_size=64, Cvae=8,
+                    head_dim=32)
+    vae_cfg = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=(1, 2))
+    params = init_var_params(cfg, device="cpu")
+    vae = init_vqvae_params(vae_cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerationServer(cfg, vae_cfg, params, vae)
+    GenerationServer(cfg, vae_cfg, params, vae, device="cpu")

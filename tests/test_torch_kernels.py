@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from sdvar_tpu_torch.ops.kernels.attention import attention_kernel, attention_plain
+from sdvar_tpu_torch.ops.kernels.conv_s8 import conv3x3_s8_kernel, conv3x3_s8_plain
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import int8_matmul_kernel, int8_matmul_plain
 from sdvar_tpu_torch.ops.kernels.quantize import act_quantize_kernel, act_quantize_plain
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
@@ -162,3 +163,55 @@ def test_int8_matmul_kernel_matches_plain(cuda, x_dtype, M, K, N):
     want = int8_matmul_plain(x.float(), q, s)
     tol = 1e-5 if x_dtype == torch.float32 else 2 ** -7
     assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,O", [(2, 16, 32, 8, 12), (1, 8, 64, 4, 4),
+                                       (2, 24, 32, 12, 8), (1, 16, 32, 160, 3),
+                                       (1, 16, 40, 160, 160), (1, 9, 33, 48, 320)])
+def test_conv3x3_s8_kernel_matches_plain(cuda, out_dtype, B, H, W, C, O):
+    """Bit-equal: exact s32 sums, then the same two IEEE roundings
+    (x * scale, + bias) and the same cast. Ragged O (3, 12 against 8-wide
+    tiles; 320 against 160), C not a multiple of 32 (4, 8, 12, 48) and
+    any H and W."""
+    g = torch.Generator(device=cuda).manual_seed(B * H + W + C + O)
+    x8 = torch.randint(-127, 128, (B, H, W, C), device=cuda, generator=g,
+                       dtype=torch.int8)
+    wk = torch.randint(-127, 128, (O, 3, 3, C), device=cuda, generator=g,
+                       dtype=torch.int8)
+    scale = torch.rand(O, device=cuda, generator=g) * 2e-3
+    bias = torch.randn(O, device=cuda, generator=g)
+    got = conv3x3_s8_kernel(x8, wk, scale, bias, out_dtype)
+    want = conv3x3_s8_plain(x8, wk, scale, bias, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (B, H, W, O)
+    assert torch.equal(got, want)
+
+
+def test_conv3x3_s8_kernel_refuses_what_it_does_not_take(cuda):
+    x8 = torch.zeros(1, 8, 32, 8, device=cuda, dtype=torch.int8)
+    wk = torch.zeros(4, 3, 3, 8, device=cuda, dtype=torch.int8)
+    s, b = torch.ones(4, device=cuda), torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_s8_kernel(x8.permute(0, 2, 1, 3), wk, s, b)  # (B, W, H, C) view
+    with pytest.raises(ValueError, match="multiple of 4"):
+        conv3x3_s8_kernel(x8[..., :6].contiguous(), wk[..., :6].contiguous(), s, b)
+    with pytest.raises(ValueError, match="float32"):
+        conv3x3_s8_kernel(x8, wk, s.double(), b)
+
+
+def test_w8a8_pixel_decode_launches_once_per_site(cuda):
+    """One all-int8 pixel decode of the small stack (48px, every site at the
+    top level) launches the conv kernel once per quantized site."""
+    from sdvar_tpu_torch.config import VQVAEConfig
+    from sdvar_tpu_torch.models import vqvae as VQ
+
+    cfg = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=(1, 2, 3))
+    p = VQ.init_vqvae_params(cfg, seed=0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    f_hat = torch.randn(2, 8, 3, 3, device=cuda, generator=g)
+    sites = VQ.calibrate_decoder_w8a8(cfg, p, [f_hat], alpha=0.75)
+    conv3x3_s8_kernel.launches = 0
+    img = VQ.fhat_to_img_nhwc_w8a8_static(cfg, p, f_hat, sites)
+    torch.cuda.synchronize()
+    assert conv3x3_s8_kernel.launches == sum(s is not None for s in sites) == 8
+    assert img.shape == (2, 3, 48, 48) and torch.isfinite(img).all()
