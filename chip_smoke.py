@@ -8,19 +8,26 @@ kernel against its plain PyTorch version on the card, and drives the port's
 paths at VAR-d30 256px (class-conditional, random weights from a seed):
 ``generate_images`` on batches of B=16 requests in bf16, then quantized
 (W8A8 weights and an INT8 KV cache, the JAX package's headline
-configuration, and weight-only INT8); then the continuous-batching
-``GenerationServer`` answering requests, all-int8 (W8A8 + INT8 KV with the
-calibrated W8A8 pixel decoder, uint8 delivery) and bf16. It checks the
-outputs and the kernel launch counts of each path, holds small stacks on
-the card against the CPU plain path, times the three pixel decoders and the
-kernels. The last stdout line is
-``{"ok": true, "device": {...}}``; any failed phase raises and the script
-exits non-zero without printing it. It needs a CUDA card and the
-``sdvar_tpu_torch`` package beside it, and imports nothing of JAX.
+configuration, and weight-only INT8); the bf16 and W8A8 decodes again with
+the cache-kernel switch on (``set_cache_kernel``: the fused cache write +
+attention, bit-equal to the switch off); SDVAR speculative decoding
+(``SpeculativeEngine``: a VAR-d16 self-draft in f32 that must accept every
+scale, then VAR-d16 -> VAR-d30 with every drafted scale accepted and with
+the real accept rule, beside the d30 baseline) and the server in
+speculative mode; then the continuous-batching ``GenerationServer``
+answering requests, all-int8 (W8A8 + INT8 KV with the calibrated W8A8
+pixel decoder, uint8 delivery) and bf16. It checks the outputs and the
+kernel launch counts of each path, holds small stacks on the card against
+the CPU plain path, times the three pixel decoders and the kernels. The
+last stdout line is ``{"ok": true, "device": {...}}``; any failed phase
+raises and the script exits non-zero without printing it. It needs a CUDA
+card and the ``sdvar_tpu_torch`` package beside it, and imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -30,9 +37,16 @@ import time
 import torch
 import torch.nn.functional as F
 
-from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
+from sdvar_tpu_torch.config import (
+    SamplingConfig,
+    SpeculativeConfig,
+    VARConfig,
+    VQVAEConfig,
+    var_config_pair,
+)
 from sdvar_tpu_torch.engine.decode import decode_all_scales, generate_images
 from sdvar_tpu_torch.engine.serving import GenerationServer
+from sdvar_tpu_torch.engine.speculative import SpeculativeEngine
 from sdvar_tpu_torch.models.var import apply_transformer, get_logits, init_var_params
 from sdvar_tpu_torch.models.vqvae import (
     calibrate_decoder_w8a8,
@@ -42,11 +56,17 @@ from sdvar_tpu_torch.models.vqvae import (
     init_vqvae_params,
 )
 from sdvar_tpu_torch.ops.kernels import _build
+from sdvar_tpu_torch.ops.attention import set_cache_kernel
 from sdvar_tpu_torch.ops.kernels.attention import (
+    attention_cache_kernel,
+    attention_cache_plain,
+    attention_cache_write_kernel,
+    attention_cache_write_plain,
     attention_kernel,
     attention_plain,
     smem_bytes,
 )
+from sdvar_tpu_torch.ops.masks import verify_window_bias
 from sdvar_tpu_torch.ops.kernels.conv_s8 import conv3x3_s8_kernel, conv3x3_s8_plain
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import (
     int8_matmul_kernel,
@@ -61,6 +81,7 @@ from sdvar_tpu_torch.ops.quantization import (
     QuantizedKVCache,
     dequantize_tokens,
     dequantize_weight,
+    quantize_tokens,
     quantize_var_params,
     quantize_weight,
 )
@@ -77,6 +98,7 @@ F32_FLOPS = 67e12
 INT32_OPS = 64 * 132 * 1.98e9
 
 B = 16             # requests per batch (2B = 32 rows under CFG)
+DRAFT_DEPTH = 16   # the speculative engine's draft: VAR-d16
 B_LARGE = 32       # the batch bench.py tries first for the quantized decode
 N_BATCHES = 3
 DEPTH = 30
@@ -153,6 +175,24 @@ def attention_int8_bound(Bq, Lq, Lk, H, hd):
     per-token scales moved once, vs 4*B*H*Lq*Lk*hd FLOPs at the bf16
     peak."""
     nbytes = 2 * H * hd * Bq * 2 * Lq + H * hd * Bq * 2 * Lk + 2 * Bq * Lk * 4
+    flops = 4 * Bq * H * Lq * Lk * hd
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cache_write_bound(Bq, Lq, begin, H, hd, int8, bias):
+    """(bound ms, bound_by) of the fused cache write + attention: bf16 q
+    read and the output written, the new K/V read and written into the
+    cache, the prefix K/V [0, begin) read (int8 with their f32 per-token
+    scales), the bias read if any, vs 4*B*H*Lq*Lk*hd FLOPs at the bf16
+    peak."""
+    C, Lk = H * hd, begin + Lq
+    kv = 1 if int8 else 2
+    nbytes = Bq * C * 2 * 2 * Lq + Bq * C * kv * 2 * (2 * Lq + begin)
+    if int8:
+        nbytes += Bq * 4 * 2 * (2 * Lq + begin)
+    if bias:
+        nbytes += Lq * Lk * 4
     flops = 4 * Bq * H * Lq * Lk * hd
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -407,6 +447,9 @@ def _reset_counts():
     attention_kernel.launches = attention_kernel.launches_int8 = 0
     act_quantize_kernel.launches = int8_matmul_kernel.launches = 0
     sample_kernel.launches = conv3x3_s8_kernel.launches = 0
+    attention_cache_write_kernel.launches = 0
+    attention_cache_write_kernel.launches_int8 = 0
+    attention_cache_kernel.launches = 0
 
 
 def _read_counts():
@@ -415,7 +458,15 @@ def _read_counts():
             "act_quantize": act_quantize_kernel.launches,
             "int8_matmul": int8_matmul_kernel.launches,
             "sampler": sample_kernel.launches,
-            "conv3x3_s8": conv3x3_s8_kernel.launches}
+            "conv3x3_s8": conv3x3_s8_kernel.launches,
+            "cache_write": attention_cache_write_kernel.launches,
+            "cache_write_int8": attention_cache_write_kernel.launches_int8,
+            "attention_cache": attention_cache_kernel.launches}
+
+
+def _want(**counts):
+    """Expected launch counts: the given ones, 0 for every other kernel."""
+    return {**{k: 0 for k in _read_counts()}, **counts}
 
 
 def _time_decodes(name, var_cfg, vae_cfg, params, vae, samp, batch, kv_mode,
@@ -494,10 +545,9 @@ def phase_quant_path(name):
     # activation quantizations (qkv, proj and fc1 inputs, fused fc2 input);
     # per scale one head matmul and one sampler launch: 300/1200/10/10
     S = len(PNS)
-    want = {"attention": 0, "attention_int8": S * DEPTH * N_BATCHES,
-            "act_quantize": 4 * S * DEPTH * N_BATCHES,
-            "int8_matmul": S * N_BATCHES, "sampler": S * N_BATCHES,
-            "conv3x3_s8": 0}
+    want = _want(attention_int8=S * DEPTH * N_BATCHES,
+                 act_quantize=4 * S * DEPTH * N_BATCHES,
+                 int8_matmul=S * N_BATCHES, sampler=S * N_BATCHES)
     if launches != want:
         raise AssertionError(f"w8a8 path launch counts {launches} != {want}")
     for img in imgs:
@@ -534,8 +584,8 @@ def phase_quant_path(name):
     w8 = _read_counts()
     log(f"[quant] kernel launches over one w8 + int8-KV decode: {w8}")
     # four block matmuls per layer and the head: 1200 + 10
-    want = {"attention": 0, "attention_int8": S * DEPTH, "act_quantize": 0,
-            "int8_matmul": 4 * S * DEPTH + S, "sampler": S, "conv3x3_s8": 0}
+    want = _want(attention_int8=S * DEPTH, int8_matmul=4 * S * DEPTH + S,
+                 sampler=S)
     if w8 != want:
         raise AssertionError(f"w8 path launch counts {w8} != {want}")
     _time_decodes(name, var_cfg, vae_cfg, params, vae, samp, B, "int8", False,
@@ -1063,6 +1113,443 @@ def phase_kernel_times(launches, errs, smp):
     return kernels
 
 
+# the verify window timed and checked: start 8, gamma 2 (scales 8 and 9)
+CACHE_SHAPES = {"scale 9": (256, 424, False), "verify window": (425, 255, True)}
+CACHE_LI = 1  # the layer written and read, of a two-layer stacked cache
+
+
+def _cache_case(g, int8, Lq, begin):
+    """q (2B, Lq, H, 64) bf16; a (2, 2B, 680, C) stacked K and V cache
+    full of other tokens (int8: with (2, 2B, 680) scale planes log-uniform
+    in [1e-3, 1e2]); this scale's new rows (2B, Lq, H, 64): bf16 unit
+    keys, as the l2-normalised keys are, or int8 from quantize_tokens."""
+    Bq, H, hd, Lmax = 2 * B, DEPTH, 64, 680
+    C = H * hd
+    if int8:
+        q = (torch.randn(Bq, Lq, H, hd, device=DEV, generator=g) * 1e-3).to(torch.bfloat16)
+        ck, cv = (torch.randint(-127, 128, (2, Bq, Lmax, C), device=DEV,
+                                generator=g, dtype=torch.int8) for _ in range(2))
+        cs = tuple(_log_uniform((2, Bq, Lmax), 1e-3, 1e2, g) for _ in range(2))
+        (kn, ks), (vn, vs) = (quantize_tokens(torch.randn(
+            Bq, Lq, C, device=DEV, generator=g)) for _ in range(2))
+        return (q, ck, cv, cs, kn.view(Bq, Lq, H, hd), vn.view(Bq, Lq, H, hd),
+                (ks, vs))
+    unit = lambda *shape: F.normalize(torch.randn(*shape, device=DEV, generator=g),
+                                      dim=-1).to(torch.bfloat16)
+    q = unit(Bq, Lq, H, hd) * 4
+    ck = unit(2, Bq, Lmax, H, hd).view(2, Bq, Lmax, C)
+    cv = torch.randn(2, Bq, Lmax, C, device=DEV, generator=g).to(torch.bfloat16)
+    kn = unit(Bq, Lq, H, hd)
+    vn = torch.randn(Bq, Lq, H, hd, device=DEV, generator=g).to(torch.bfloat16)
+    return q, ck, cv, None, kn, vn, None
+
+
+def _layer(q, ck, cv, cs, kv_len):
+    """The cache layer's [0, kv_len) as attention_kernel takes it."""
+    Bq, _, H, hd = q.shape
+    k = ck[CACHE_LI, :, :kv_len].view(Bq, kv_len, H, hd)
+    v = cv[CACHE_LI, :, :kv_len].view(Bq, kv_len, H, hd)
+    return k, v, (None if cs is None else
+                  (cs[0][CACHE_LI, :, :kv_len], cs[1][CACHE_LI, :, :kv_len]))
+
+
+def _verify_bias(Lq, kv_len, with_bias):
+    if not with_bias:
+        return None
+    return torch.from_numpy(verify_window_bias(PNS, 8, 2, kv_len)).to(DEV)
+
+
+def phase_cache_kernel_checks():
+    """The fused cache write + attention (row 8) and the full-cache
+    attention (row 7) at the decode's scale-9 shape and at the verify
+    window's (start 8, gamma 2, with its bias), bf16 and INT8 K/V: the
+    written cache rows and scales bit-equal to the plain version's, the
+    output bit-equal to the unfused pair (two copies, then
+    attention_kernel on the layer's slice) and within the attention
+    kernel's bf16 tolerance of the plain version (float: rtol = atol =
+    2e-2; int8: 2e-2 of the output's size)."""
+    g = torch.Generator(device=DEV).manual_seed(6)
+    errs = {}
+    li = CACHE_LI
+    for int8 in (False, True):
+        for tag, (Lq, begin, with_bias) in CACHE_SHAPES.items():
+            q, ck, cv, cs, kn, vn, ns = _cache_case(g, int8, Lq, begin)
+            kv_len = begin + Lq
+            bias = _verify_bias(Lq, kv_len, with_bias)
+            clone = lambda: (ck.clone(), cv.clone(),
+                             None if cs is None else tuple(t.clone() for t in cs))
+            (pk, pv, ps), (uk, uv, us) = clone(), clone()
+            got = attention_cache_write_kernel(q, kn, vn, ck, cv, li, begin,
+                                               kv_len, bias, 1.0, ns, cs)
+            torch.cuda.synchronize()
+            want = attention_cache_write_plain(q, kn, vn, pk, pv, li, begin,
+                                               kv_len, bias, 1.0, ns, ps)
+            Bq, _, H, hd = q.shape
+            uk[li, :, begin:kv_len] = kn.reshape(Bq, Lq, H * hd)
+            uv[li, :, begin:kv_len] = vn.reshape(Bq, Lq, H * hd)
+            if us is not None:
+                for plane, new in zip(us, ns):
+                    plane[li, :, begin:kv_len] = new
+            k, v, kv_scales = _layer(q, uk, uv, us, kv_len)
+            unfused = attention_kernel(q, k, v, bias, 1.0, kv_scales=kv_scales)
+            cache_equal = torch.equal(ck, pk) and torch.equal(cv, pv) and (
+                cs is None or all(torch.equal(a, b) for a, b in zip(cs, ps)))
+            err = (got.float() - want.float()).abs().max().item()
+            if int8:
+                close = err <= 2e-2 * want.float().abs().max().item()
+            else:
+                close = torch.allclose(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+            # row 7 over the cache just written: the same keys, the same bits
+            got7 = attention_cache_kernel(q, ck, cv, li, kv_len, bias, 1.0, cs)
+            torch.cuda.synchronize()
+            want7 = attention_cache_plain(q, ck, cv, li, kv_len, bias, 1.0, cs)
+            err7 = (got7.float() - want7.float()).abs().max().item()
+            ok = (cache_equal and close and torch.equal(got, unfused)
+                  and torch.equal(got7, got) and bool(torch.isfinite(got).all()))
+            kind = "int8" if int8 else "bf16"
+            log(f"[check] attention_cache_write {kind} {tag} (2B={2 * B} Lq={Lq} "
+                f"cache_begin={begin} kv_len={kv_len}"
+                f"{', bias' if with_bias else ''}): cache rows"
+                f"{' and scales' if int8 else ''} bit-equal {cache_equal}, "
+                f"output bit-equal to copy + attention_kernel "
+                f"{torch.equal(got, unfused)}, max|d| to plain {err:.3e}; "
+                f"attention_cache over it bit-equal {torch.equal(got7, got)}, "
+                f"max|d| to plain {err7:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"cache kernels disagree: {kind} {tag}")
+            errs[("cache_write", int8, tag)] = err
+            errs[("cache", int8, tag)] = err7
+            del q, ck, cv, cs, kn, vn, pk, pv, ps, uk, uv, us
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_cache_switch(name):
+    """VAR-d30 256px B=16 decode_all_scales with the cache-kernel switch
+    off and on, bf16 and then W8A8 + INT8 KV: the ids and f_hat bit-equal;
+    switched on, 300 fused write launches per decode and none of
+    attention_kernel; latent ms of both settings, in turns."""
+    var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    labels = torch.arange(B) * 61 % 1000
+    S = len(PNS)
+    out = {}
+    for mode in ("bf16", "w8a8"):
+        if mode == "bf16":
+            params, kv = init_var_params(var_cfg, seed=0, device=DEV,
+                                         dtype=torch.bfloat16), "bf16"
+            want = _want(cache_write=S * DEPTH, sampler=S)
+        else:
+            params, kv = _quantized_var(var_cfg, "w8a8"), "int8"
+            want = _want(cache_write_int8=S * DEPTH, act_quantize=4 * S * DEPTH,
+                         int8_matmul=S, sampler=S)
+
+        def run():
+            return decode_all_scales(var_cfg, vae_cfg, params, vae["quant"],
+                                     labels, 9, samp, return_ids=True,
+                                     kv_mode=kv)
+        try:
+            for on in (False, True):  # warm-up
+                set_cache_kernel(on)
+                run()
+            set_cache_kernel(False)
+            f_off, ids_off = run()
+            set_cache_kernel(True)
+            torch.cuda.synchronize()
+            _reset_counts()
+            f_on, ids_on = run()
+            torch.cuda.synchronize()
+            launches = _read_counts()
+            same = torch.equal(ids_on, ids_off) and torch.equal(f_on, f_off)
+            log(f"[switch] {mode} decode with set_cache_kernel(True): launches "
+                f"per decode {launches}; ids and f_hat bit-equal to the switch "
+                f"off {same}")
+            if launches != want or not same:
+                raise AssertionError(f"[switch] {mode}: launches {launches} "
+                                     f"(want {want}), bit-equal {same}")
+            ms = {False: [], True: []}
+            for on in (False, True) * 3:
+                set_cache_kernel(on)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                run()
+                torch.cuda.synchronize()
+                ms[on].append((time.time() - t0) * 1e3)
+        finally:
+            set_cache_kernel(False)
+        log(f"[switch] {name} {mode}: B={B} latent decode switch off "
+            f"{min(ms[False]):.1f} ms (runs {', '.join(f'{t:.1f}' for t in ms[False])})"
+            f", on {min(ms[True]):.1f} ms (runs "
+            f"{', '.join(f'{t:.1f}' for t in ms[True])}), in turns")
+        out[mode] = launches
+        del params, f_off, f_on
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spec_launches(st):
+    """Launches of one speculative generation with the switch on: a fused
+    write per layer of every draft scale (d16) and verify window (d30),
+    one sampler per draft scale and per resampled scale."""
+    return _want(cache_write=DRAFT_DEPTH * st.draft_calls + DEPTH * st.target_calls,
+                 sampler=st.draft_calls + st.resampled_scales)
+
+
+def _good_fhat(f_hat, tag):
+    if f_hat.shape != (B, 32, 16, 16) or not torch.isfinite(f_hat).all():
+        raise AssertionError(f"[{tag}] bad f_hat {tuple(f_hat.shape)}")
+
+
+def phase_speculative(name):
+    """The speculative engine at full width, the cache-kernel switch on:
+    VAR-d16 self-draft greedy in f32 (every scale accepted, the d16
+    baseline's ids), then VAR-d16 -> VAR-d30 in bf16: force_accept_all at
+    gamma 2 and 3 (the pipeline ceiling) and the real accept rule, beside
+    the d30 baseline decode, each timed best of 3 in turns."""
+    vae_cfg = VQVAEConfig()
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    d_cfg, t_cfg = var_config_pair(DRAFT_DEPTH, DEPTH)
+    labels = torch.arange(B) * 61 % 1000
+    S = len(PNS)
+    set_cache_kernel(True)
+    try:
+        # self-draft greedy, f32 with TF32 off, head x30 so the argmaxes
+        # stand apart: a verify window's products have other shapes than
+        # the per-scale decode's, and must not flip a near tie
+        p16 = init_var_params(d_cfg, seed=5, device=DEV, dtype=torch.float32)
+        p16["head"]["w"] *= 30.0
+        greedy = SamplingConfig(cfg=1.5, top_k=1)
+        eng = SpeculativeEngine(vae_cfg, d_cfg, d_cfg, vae, p16, p16,
+                                dtype=torch.float32, kv_mode="f32")
+        eng.generate_speculative(labels, 3, SpeculativeConfig(gamma=2), greedy)
+        torch.cuda.synchronize()
+        _reset_counts()
+        f_hat, st, ids = eng.generate_speculative(
+            labels, 3, SpeculativeConfig(gamma=2), greedy, return_ids=True)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        _, base_ids = decode_all_scales(d_cfg, vae_cfg, p16, vae["quant"],
+                                        labels, 3, greedy, torch.float32,
+                                        return_ids=True, kv_mode="f32")
+        want = _want(cache_write=DRAFT_DEPTH * (S + 5), sampler=S)
+        ok = (st.accept_count == S and st.forced_accepts == 0
+              and st.target_calls == 5 and torch.equal(ids, base_ids)
+              and launches == want)
+        log(f"[spec] self-draft d16/d16 greedy f32 gamma=2: {st.as_dict()}; "
+            f"ids equal to the d16 baseline decode {torch.equal(ids, base_ids)}"
+            f"; launches {launches} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("self-draft greedy must accept all 10 scales "
+                                 "in 5 verify calls with the baseline's ids")
+        _good_fhat(f_hat, "spec")
+        del eng, p16, f_hat
+        torch.cuda.empty_cache()
+
+        samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+        p16 = init_var_params(d_cfg, seed=5, device=DEV, dtype=torch.bfloat16)
+        p30 = init_var_params(t_cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+        eng = SpeculativeEngine(vae_cfg, d_cfg, t_cfg, vae, p16, p30)
+        specs = {"force_accept_all gamma=2": SpeculativeConfig(gamma=2, force_accept_all=True),
+                 "force_accept_all gamma=3": SpeculativeConfig(gamma=3, force_accept_all=True),
+                 "accept rule gamma=2": SpeculativeConfig(gamma=2)}
+        runs = {"d30 baseline": lambda: (decode_all_scales(
+            t_cfg, vae_cfg, p30, vae["quant"], labels, 4, samp), None)}
+        for tag, spec in specs.items():
+            runs[tag] = functools.partial(eng.generate_speculative, labels, 4,
+                                          spec, samp)
+        for fn in runs.values():  # warm-up
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counted = {}
+        for tag, fn in runs.items():
+            _reset_counts()
+            f_hat, st = fn()
+            torch.cuda.synchronize()
+            launches = _read_counts()
+            _good_fhat(f_hat, "spec")
+            want = (_want(cache_write=S * DEPTH, sampler=S) if st is None
+                    else _spec_launches(st))
+            calls = {"force_accept_all gamma=2": 5, "force_accept_all gamma=3": 4}
+            ok = launches == want and (st is None or (
+                st.accept_count == S
+                and st.target_calls == calls.get(tag, st.target_calls)))
+            log(f"[spec] d16 -> d30 {tag}: "
+                f"{'baseline decode' if st is None else st.as_dict()}; launches "
+                f"{launches} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[spec] {tag}: launches {launches} (want "
+                                     f"{want}), stats {st}")
+            counted[tag] = launches
+        ms = {tag: [] for tag in runs}
+        for _ in range(3):
+            for tag, fn in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.time()
+                fn()
+                torch.cuda.synchronize()
+                ms[tag].append((time.time() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for tag, t in ms.items():
+            log(f"[spec] {name} B={B} {tag}: latent {min(t):.1f} ms (runs "
+                f"{', '.join(f'{x:.1f}' for x in t)})")
+        log(f"[spec] peak memory with the d16 and d30 weights and both KV "
+            f"caches: {peak:.2f} GiB")
+    finally:
+        set_cache_kernel(False)
+    del eng, p16, p30
+    torch.cuda.empty_cache()
+    return counted["force_accept_all gamma=2"]
+
+
+def phase_spec_serving(name):
+    """The server in speculative mode, cache-kernel switch on: VAR-d16 ->
+    VAR-d30, bf16, bucket 16, uint8 delivery, the channels-last bf16 pixel
+    decoder; a warm bucket, then 32 requests, then the first batch's 16
+    again as one batch (acceptance is batch-global: the same batch must
+    give the same bits)."""
+    vae_cfg = VQVAEConfig()
+    d_cfg, t_cfg = var_config_pair(DRAFT_DEPTH, DEPTH)
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    p16 = init_var_params(d_cfg, seed=5, device=DEV, dtype=torch.bfloat16)
+    p30 = init_var_params(t_cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+    set_cache_kernel(True)
+    srv = GenerationServer(t_cfg, vae_cfg, p30, vae, samp=samp,
+                           max_batch=SERVE_B, buckets=[SERVE_B],
+                           max_wait_ms=20.0, dtype=torch.bfloat16,
+                           deliver="u8", draft_cfg=d_cfg, draft_params=p16)
+    srv.start()
+    try:
+        warm, _ = _serve(srv, [(i, 3000 + i) for i in range(SERVE_B)])
+        _check_results(warm, "serve spec")
+        keys = ["batches"] + ["spec_" + k for k in
+                              ("target_calls", "draft_calls", "accept_count",
+                               "reject_count", "forced_accepts")]
+        before = {k: srv.stats.get(k, 0) for k in keys}
+        reqs = [((i * 29) % 1000, 30_000 + i) for i in range(2 * SERVE_B)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        results, wall = _serve(srv, reqs)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        _check_results(results, "serve spec")
+        d = {k: srv.stats.get(k, 0) - before[k] for k in keys}
+        want = _want(cache_write=DRAFT_DEPTH * d["spec_draft_calls"]
+                     + DEPTH * d["spec_target_calls"],
+                     sampler=d["spec_draft_calls"])
+        lat = sorted(r.latency_s * 1e3 for r in results)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[serve spec] {name}: {len(reqs)} requests in {wall:.3f} s: "
+            f"{len(reqs) / wall:.2f} img/s delivered, latency p50 "
+            f"{lat[len(lat) // 2]:.1f} ms p95 {lat[int(len(lat) * 0.95)]:.1f} "
+            f"ms max {lat[-1]:.1f} ms, {d['batches']} batches, stats {d}, "
+            f"launches {launches}, peak memory {peak:.2f} GiB")
+        if launches != want or d["spec_accept_count"] != len(PNS) * d["batches"]:
+            raise AssertionError(f"[serve spec] launches {launches} != {want} "
+                                 f"or stats {d}")
+        again, _ = _serve(srv, reqs[:SERVE_B])
+        _check_results(again, "serve spec")
+        differ = [i for i, r in enumerate(again)
+                  if not (r.image == results[i].image).all()]
+        log(f"[serve spec] the first batch's {SERVE_B} requests again as one "
+            f"batch: {SERVE_B - len(differ)} images bit-equal")
+        if differ:
+            raise AssertionError(f"{len(differ)} images of the same batch "
+                                 "differ")
+    finally:
+        srv.stop()
+        set_cache_kernel(False)
+    del srv, p16, p30, vae
+    torch.cuda.empty_cache()
+
+
+def phase_cache_kernel_times(launches, int8_launches, errs):
+    """Rows 7 and 8 on the card: the fused write + attention at the
+    decode's scale-9 shape (and the verify window's, with its bias) beside
+    its plain version and the unfused pair it replaces (two copies, then
+    attention_kernel: no single PyTorch call computes it); the full-cache
+    attention at scale 9 beside scaled_dot_product_attention on the
+    layer's slice."""
+    g = torch.Generator(device=DEV).manual_seed(7)
+    li, H, hd = CACHE_LI, DEPTH, 64
+    t = {}
+    for tag, (Lq, begin, with_bias) in CACHE_SHAPES.items():
+        q, ck, cv, _, kn, vn, _ = _cache_case(g, False, Lq, begin)
+        kv_len = begin + Lq
+        bias = _verify_bias(Lq, kv_len, with_bias)
+        Bq = q.shape[0]
+
+        def unfused():
+            ck[li, :, begin:kv_len] = kn.reshape(Bq, Lq, H * hd)
+            cv[li, :, begin:kv_len] = vn.reshape(Bq, Lq, H * hd)
+            k, v, _ = _layer(q, ck, cv, None, kv_len)
+            return attention_kernel(q, k, v, bias, 1.0)
+        w_ms = cuda_ms(lambda: attention_cache_write_kernel(
+            q, kn, vn, ck, cv, li, begin, kv_len, bias, 1.0), 50)
+        w_plain = cuda_ms(lambda: attention_cache_write_plain(
+            q, kn, vn, ck, cv, li, begin, kv_len, bias, 1.0), 5, warmup=1)
+        u_ms = cuda_ms(unfused, 50)
+        w_bound, w_by = cache_write_bound(Bq, Lq, begin, H, hd, False, with_bias)
+        t[tag] = {"ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
+                  "bound_by": w_by, "unfused_ms": u_ms}
+        log(f"[time] attention_cache_write {tag} (2B={Bq} Lq={Lq} cache_begin="
+            f"{begin} kv_len={kv_len} H={H} hd={hd} bf16"
+            f"{', bias' if with_bias else ''}): kernel_ms {w_ms:.4f} plain_ms "
+            f"{w_plain:.4f} library_ms none (no single call); two copies + "
+            f"attention_kernel {u_ms:.4f} ms; bound_ms {w_bound:.4f} ({w_by})")
+        if tag == "scale 9":
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            k, v, _ = _layer(q, ck, cv, None, kv_len)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            c_ms = cuda_ms(lambda: attention_cache_kernel(q, ck, cv, li, kv_len,
+                                                          None, 1.0), 50)
+            c_plain = cuda_ms(lambda: attention_cache_plain(
+                q, ck, cv, li, kv_len, None, 1.0), 10)
+            c_lib = cuda_ms(lambda: sdpa(qt, kt, vt, scale=1.0), 50)
+            c_bound, c_by = attention_bound(Bq, Lq, kv_len, H, hd, 2)
+            log(f"[time] attention_cache scale 9 (2B={Bq} Lq={Lq} kv_len={kv_len}, "
+                f"layer {li} of the stacked cache, bf16): kernel_ms {c_ms:.4f} "
+                f"plain_ms {c_plain:.4f} library_ms {c_lib:.4f} "
+                f"(scaled_dot_product_attention on the layer's slice) bound_ms "
+                f"{c_bound:.4f} ({c_by}); on no model path (0 launches)")
+        del q, ck, cv, kn, vn
+    q, ck, cv, cs, kn, vn, ns = _cache_case(g, True, 256, 424)
+    i_ms = cuda_ms(lambda: attention_cache_write_kernel(
+        q, kn, vn, ck, cv, li, 424, 680, None, 1.0, ns, cs), 50)
+    i_bound, i_by = cache_write_bound(2 * B, 256, 424, H, hd, True, False)
+    log(f"[time] attention_cache_write int8 scale 9: kernel_ms {i_ms:.4f} "
+        f"bound_ms {i_bound:.4f} ({i_by}); launches per W8A8 + INT8-KV decode "
+        f"with the switch on {int8_launches}")
+    del q, ck, cv, cs, kn, vn, ns
+    torch.cuda.empty_cache()
+    s9 = t["scale 9"]
+    return [
+        {"name": "attention_cache_write", "route": "cuda",
+         "source": "sdvar_tpu_torch/csrc/attention.cu",
+         "replaces": "sdvar_tpu/ops/pallas/experimental.py:199",
+         "launches": launches,
+         "max_abs_err": errs[("cache_write", False, "scale 9")],
+         "ms": s9["ms"], "plain_ms": s9["plain_ms"],
+         "bound_ms": s9["bound_ms"], "bound_by": s9["bound_by"],
+         "library_ms": None, "unfused_ms": s9["unfused_ms"],
+         "int8": {"ms": i_ms, "bound_ms": i_bound, "bound_by": i_by,
+                  "launches_per_decode": int8_launches,
+                  "max_abs_err": errs[("cache_write", True, "scale 9")]},
+         "verify_window": t["verify window"]},
+        {"name": "attention_cache", "route": "cuda",
+         "source": "sdvar_tpu_torch/csrc/attention.cu",
+         "replaces": "sdvar_tpu/ops/pallas/experimental.py:33",
+         "launches": 0, "on_model_path": False,
+         "max_abs_err": errs[("cache", False, "scale 9")],
+         "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
+         "bound_by": c_by, "library_ms": c_lib},
+    ]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1094,15 +1581,23 @@ def main() -> int:
     with full_f32():  # the plain f32 versions' products, as the kernels'
         errs, smp = phase_kernel_checks()
         errs.update(phase_quant_kernel_checks())
+        errs.update(phase_cache_kernel_checks())
     errs.update(phase_conv_checks())
     launches = phase_main_path(name)
     launches.update(phase_quant_path(name))
+    switched = phase_cache_switch(name)
+    spec_launches = phase_speculative(name)
+    phase_spec_serving(name)
     conv_launches, per_decode = phase_serving(name)
     phase_small_reference()
     phase_small_reference_quant()
     with full_f32():
         kernels = phase_kernel_times(launches, errs, smp)
     kernels.append(phase_conv_times(conv_launches, per_decode, errs))
+    with full_f32():
+        kernels += phase_cache_kernel_times(
+            spec_launches["cache_write"],
+            switched["w8a8"]["cache_write_int8"], errs)
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

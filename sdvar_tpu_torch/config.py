@@ -1,4 +1,4 @@
-"""Model, tokenizer and sampling configuration.
+"""Model, tokenizer, sampling and speculative-decoding configuration.
 
 A copy of the configuration classes of ``sdvar_tpu/config.py`` (the port
 imports nothing from the JAX package). Frozen dataclasses, hashable, with
@@ -172,3 +172,30 @@ class SamplingConfig:
     top_k: int = 0
     top_p: float = 0.0
     more_smooth: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeculativeConfig:
+    """Speculative-decoding engine knobs (the JAX package's, same defaults)."""
+
+    gamma: int = 2                       # scales drafted per round
+    match_threshold: float = 0.5         # top-1 match rate to accept a scale
+    similarity_thresh: float = 0.8       # kept for parity with the reference
+    entry_num: int = 4                   # static handoff point
+    sd_mask: int = 3                     # handoff prefill mask mode 0..5
+    dynamic_gamma: bool = True           # shrink gamma on total rejection
+    force_accept_at_gamma1: bool = True  # livelock guard
+    force_accept_all: bool = False       # accept every drafted scale: the
+                                         # pipeline ceiling, for measurement
+
+
+def var_config_pair(
+    depth_draft: int = 16,
+    depth_target: int = 30,
+    patch_nums: Tuple[int, ...] = PATCH_NUMS_256,
+    **kw,
+) -> Tuple[VARConfig, VARConfig]:
+    """Draft/target config pair sharing one tokenizer."""
+    draft = VARConfig(depth=depth_draft, patch_nums=patch_nums, **kw)
+    target = VARConfig(depth=depth_target, patch_nums=patch_nums, **kw)
+    return draft, target

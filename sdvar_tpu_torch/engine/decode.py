@@ -98,8 +98,11 @@ def scale_step(
     si: int, state: DecodeState, sos: torch.Tensor, lvl_pos: torch.Tensor,
     samp: SamplingConfig, dtype=torch.bfloat16,
     mods: Optional[torch.Tensor] = None,
+    attn_bias: Optional[torch.Tensor] = None,
 ) -> Tuple[DecodeState, torch.Tensor]:
-    """One scale of KV-cached CFG decode -> (state', ids (B, pn^2) int32)."""
+    """One scale of KV-cached CFG decode -> (state', ids (B, pn^2) int32).
+    ``attn_bias``: an optional (pn^2, kv_len) additive bias for this step
+    (None attends the whole cache, the baseline)."""
     if samp.more_smooth:
         raise NotImplementedError("more_smooth sampling is not ported")
     pn = var_cfg.patch_nums[si]
@@ -115,8 +118,9 @@ def scale_step(
         x = M.word_embed(params, nm, torch.float32) + lvl_pos[None, bg:ed]
         x = cfg_double(x).to(dtype)
 
-    h = M.apply_transformer(var_cfg, params, x, sos, cache=state.cache,
-                            cache_begin=bg, kv_len=ed, mods=mods)
+    h = M.apply_transformer(var_cfg, params, x, sos, attn_bias=attn_bias,
+                            cache=state.cache, cache_begin=bg, kv_len=ed,
+                            mods=mods)
     logits = M.get_logits(var_cfg, params, h, sos)  # (2B, pn^2, V) f32
 
     t = samp.cfg * si / var_cfg.num_stages_minus_1

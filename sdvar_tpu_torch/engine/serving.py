@@ -18,8 +18,15 @@ Padding slots run label 0 with seed 0 and are dropped.
 Pixel decoders: a bf16 server decodes pixels with the channels-last bf16
 decoder, or, given calibrated ``pixel_sites``, the W8A8 one
 (``models.vqvae.calibrate_decoder_w8a8``); an f32 server keeps the golden
-f32 NCHW decoder. Speculative mode (``draft_cfg``/``draft_params``/
-``spec``) and mesh mode (``mesh_cfg``) are not ported.
+f32 NCHW decoder.
+
+Speculative mode (``draft_cfg``, ``draft_params``, optional ``spec``): each
+batch runs ``SpeculativeEngine.generate_speculative`` on the server's model
+as the target, with the batch's per-request seeds, and adds its counters to
+``stats`` (``spec_target_calls``, ``spec_draft_calls``,
+``spec_accept_count``, ``spec_reject_count``, ``spec_forced_accepts``). Its
+acceptance is batch-global, so there a request's image may depend on its
+batch companions. Mesh mode (``mesh_cfg``) is not ported.
 """
 
 from __future__ import annotations
@@ -33,12 +40,23 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
+from sdvar_tpu_torch.config import (
+    SamplingConfig,
+    SpeculativeConfig,
+    VARConfig,
+    VQVAEConfig,
+)
 from sdvar_tpu_torch.engine import decode as D
+from sdvar_tpu_torch.engine.speculative import SpeculativeEngine
 from sdvar_tpu_torch.models import vqvae as VQ
 from sdvar_tpu_torch.models.var import KVCache
 from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
 from sdvar_tpu_torch.utils.device import resolve_device
+
+
+# SpecStats counters a speculative server adds up in ``stats["spec_*"]``
+SPEC_STATS = ("target_calls", "draft_calls", "accept_count", "reject_count",
+              "forced_accepts")
 
 
 @dataclass
@@ -91,9 +109,10 @@ class GenerationServer:
         deliver: str = "f32",
         device="cuda",
     ):
-        if draft_cfg is not None or draft_params is not None or spec is not None:
-            raise NotImplementedError(
-                "speculative serving is not ported (ROADMAP Queue 1 item 9)")
+        if (draft_cfg is None) != (draft_params is None) or (
+                spec is not None and draft_cfg is None):
+            raise ValueError("speculative mode needs draft_cfg and "
+                             "draft_params (and takes spec only with them)")
         if mesh_cfg is not None:
             raise NotImplementedError(
                 "mesh serving is not ported (ROADMAP Queue 1 item 13)")
@@ -120,6 +139,13 @@ class GenerationServer:
         # "f32": Result.image is (3, H, W) f32 in [0, 1]; "u8": quantized on
         # the device, (3, H, W) uint8, a quarter of the bytes to copy
         self.deliver = deliver
+        # speculative mode: a draft/target pair behind the same scheduler
+        self.spec = self.engine = None
+        if draft_cfg is not None:
+            self.spec = spec or SpeculativeConfig()
+            self.engine = SpeculativeEngine(
+                vae_cfg, draft_cfg, var_cfg, vae_params, draft_params,
+                var_params, dtype=dtype, kv_mode=kv_mode, device=self.device)
 
         self._caches: Dict[int, object] = {}  # per-bucket reused KV caches
         self._q: "queue.Queue[Request]" = queue.Queue()
@@ -226,13 +252,22 @@ class GenerationServer:
         for i, r in enumerate(batch):
             labels[i] = r.label
             seeds[i] = r.seed & 0xFFFFFFFF
-        f_hat, cache = D.decode_all_scales(
-            self.var_cfg, self.vae_cfg, self.var_params,
-            self.vae_params["quant"], labels.to(self.device),
-            seeds.to(self.device), self.samp, self.dtype,
-            kv_mode=self.kv_mode, cache=self._cache(bsz), return_cache=True,
-            device=self.device)
-        self._caches[bsz] = cache
+        if self.engine is not None:
+            f_hat, st = self.engine.generate_speculative(
+                labels.to(self.device), seeds.to(self.device), self.spec,
+                self.samp)
+            with self._stats_lock:
+                for k in SPEC_STATS:
+                    self.stats["spec_" + k] = (self.stats.get("spec_" + k, 0)
+                                               + getattr(st, k))
+        else:
+            f_hat, cache = D.decode_all_scales(
+                self.var_cfg, self.vae_cfg, self.var_params,
+                self.vae_params["quant"], labels.to(self.device),
+                seeds.to(self.device), self.samp, self.dtype,
+                kv_mode=self.kv_mode, cache=self._cache(bsz),
+                return_cache=True, device=self.device)
+            self._caches[bsz] = cache
         imgs = (self._pixels(f_hat) + 1.0) * 0.5
         if self.deliver == "u8":
             imgs = torch.clamp(imgs * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)

@@ -21,7 +21,11 @@ import torch
 import torch.nn.functional as F
 
 from sdvar_tpu_torch.config import VARConfig
-from sdvar_tpu_torch.ops.attention import attention
+from sdvar_tpu_torch.ops.attention import (
+    attention,
+    attention_cache_write,
+    use_cache_kernel,
+)
 from sdvar_tpu_torch.ops.kernels.quantize import act_quantize
 from sdvar_tpu_torch.ops.quantization import (
     QuantizedKVCache,
@@ -190,7 +194,11 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
     and values are written in place at [li, :, cache_begin:...) and the
     attention reads keys [0, kv_len) straight from the cache; an INT8 cache
     takes the new tokens quantized, with their per-token scales beside
-    them, and the attention kernel dequantises as it reads."""
+    them, and the attention kernel dequantises as it reads. With the
+    cache-kernel switch on (``ops.attention.set_cache_kernel``), one fused
+    call does the write and the attention, for every cache the decode
+    makes (bf16; f32 under an f32 or bf16 model; int8); any other pairing
+    of cache and model dtype raises."""
     B, L, C = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     qkv_bias = torch.cat([layer["q_bias"], torch.zeros_like(layer["q_bias"]),
@@ -206,26 +214,40 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
     else:
         scale = 0.25 / math.sqrt(hd)
 
-    kv_scales = None
-    if cache is not None:
-        end = cache_begin + L
+    if cache is not None and use_cache_kernel():
+        # one call writes this layer's new rows into the cache and attends
+        # over [0, kv_len): an int8 cache takes them quantized, with their
+        # per-token scales, a float cache in the compute dtype
+        new_scales = cache_scales = None
         if isinstance(cache, QuantizedKVCache):
-            for vals, scales, new in ((cache.k, cache.k_s, k),
-                                      (cache.v, cache.v_s, v)):
-                nq, ns = quantize_tokens(new.reshape(B, L, C))
-                vals[li, :, cache_begin:end] = nq
-                scales[li, :, cache_begin:end] = ns
-            kv_scales = (cache.k_s[li, :, :kv_len], cache.v_s[li, :, :kv_len])
-        else:
-            cache.k[li, :, cache_begin:end] = k.reshape(B, L, C)
-            cache.v[li, :, cache_begin:end] = v.reshape(B, L, C)
-        k = cache.k[li, :, :kv_len].view(B, kv_len, H, hd)
-        v = cache.v[li, :, :kv_len].view(B, kv_len, H, hd)
-        if kv_scales is None and k.dtype != x.dtype:  # f32 cache, bf16 model
-            k, v = k.to(x.dtype), v.to(x.dtype)
-
-    out = attention(q, k, v, attn_bias, scale,
-                    kv_scales=kv_scales).reshape(B, L, C)
+            (k, ks), (v, vs) = (quantize_tokens(t.reshape(B, L, C))
+                                for t in (k, v))
+            k, v = k.view(B, L, H, hd), v.view(B, L, H, hd)
+            new_scales, cache_scales = (ks, vs), (cache.k_s, cache.v_s)
+        out = attention_cache_write(q, k, v, cache.k, cache.v, li,
+                                    cache_begin, kv_len, attn_bias, scale,
+                                    new_scales, cache_scales)
+    else:
+        kv_scales = None
+        if cache is not None:
+            end = cache_begin + L
+            if isinstance(cache, QuantizedKVCache):
+                for vals, scales, new in ((cache.k, cache.k_s, k),
+                                          (cache.v, cache.v_s, v)):
+                    nq, ns = quantize_tokens(new.reshape(B, L, C))
+                    vals[li, :, cache_begin:end] = nq
+                    scales[li, :, cache_begin:end] = ns
+                kv_scales = (cache.k_s[li, :, :kv_len],
+                             cache.v_s[li, :, :kv_len])
+            else:
+                cache.k[li, :, cache_begin:end] = k.reshape(B, L, C)
+                cache.v[li, :, cache_begin:end] = v.reshape(B, L, C)
+            k = cache.k[li, :, :kv_len].view(B, kv_len, H, hd)
+            v = cache.v[li, :, :kv_len].view(B, kv_len, H, hd)
+            if kv_scales is None and k.dtype != x.dtype:  # f32 cache, bf16 model
+                k, v = k.to(x.dtype), v.to(x.dtype)
+        out = attention(q, k, v, attn_bias, scale, kv_scales=kv_scales)
+    out = out.reshape(B, L, C)
     return linear_blc(out, layer["proj_w"], x.dtype) + layer["proj_b"].to(x.dtype)
 
 

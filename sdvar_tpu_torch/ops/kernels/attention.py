@@ -1,11 +1,16 @@
-"""Fused attention: the CUDA kernel's wrapper and its plain version.
+"""Fused attention: the CUDA kernels' wrappers and their plain versions.
 
-Replaces the TPU kernel ``sdvar_tpu/ops/pallas/attention.py:_kernel``,
-float-KV and INT8-KV branches. The kernel lives in
-``sdvar_tpu_torch/csrc/attention.cu`` (CUDA C++ for sm_90a, loaded with
-ctypes); its source note gives the bound and the design. ``attention_plain``
-computes the same function in f32 with einsums: it is the CPU path and the
-yardstick on the card.
+``attention_kernel`` replaces the TPU kernel
+``sdvar_tpu/ops/pallas/attention.py:_kernel``, float-KV and INT8-KV
+branches; ``attention_cache_kernel`` and ``attention_cache_write_kernel``
+replace ``sdvar_tpu/ops/pallas/experimental.py:_cache_kernel`` (attention
+over one layer of the stacked KV cache) and ``_write_kernel`` (the same,
+after writing the scale's new keys and values into the cache). All three
+are one attention loop in ``sdvar_tpu_torch/csrc/attention.cu`` (CUDA C++
+for sm_90a, loaded with ctypes); its source note gives the bound and the
+design. ``attention_plain``, ``attention_cache_plain`` and
+``attention_cache_write_plain`` compute the same functions in f32 with
+einsums: they are the CPU path and the yardstick on the card.
 
 Layouts follow the JAX package: q (B, Lq, H, hd); k/v (B, Lk, H, hd), or
 token-major (Lk, B, H, hd) when ``kv_token_major``; bias (Lq, Lk) or None;
@@ -13,6 +18,9 @@ token-major (Lk, B, H, hd) when ``kv_token_major``; bias (Lq, Lk) or None;
 (Lk, B) when token-major. The kernel takes any batch/token strides as long
 as the heads are packed in the last merged dim, so KV-cache slices, their
 scale planes and views of the fused qkv projection go in without a copy.
+The cache kernels take the port's stacked batch-major cache (depth, B,
+L_max, H*hd) with, for int8, its (depth, B, L_max) scale planes, and a
+layer index.
 """
 
 from __future__ import annotations
@@ -159,3 +167,233 @@ def attention_kernel(q, k, v, bias: Optional[torch.Tensor], scale: float,
 
 attention_kernel.launches = 0
 attention_kernel.launches_int8 = 0
+
+
+# ---------------------------------------------------------------------------
+# Attention over the stacked KV cache, with and without the cache write
+# ---------------------------------------------------------------------------
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# (q dtype, cache dtype) pairs the cache kernels take: a float cache in q's
+# dtype, an f32 cache under a bf16 q (read back rounded to bf16, as the
+# unfused path casts it), or int8 with scale planes
+_CACHE_PAIRS = {(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+                (torch.bfloat16, torch.int8), (torch.float32, torch.float32),
+                (torch.float32, torch.int8)}
+
+
+def _check_cache_args(name, q, cache_k, cache_v, li, kv_len, cache_scales,
+                      cache_begin=None):
+    """The cache kernels' contract, on either device: shapes, the dtype
+    pair, the layer and, with a write, kv_len = cache_begin + Lq (the port
+    has no pad query rows)."""
+    B, Lq, H, hd = q.shape
+    if cache_k.dim() != 4 or cache_k.shape != cache_v.shape \
+            or cache_k.dtype != cache_v.dtype:
+        raise ValueError(f"{name}: caches must share a (depth, B, L_max, C) "
+                         f"shape and dtype, got {tuple(cache_k.shape)} "
+                         f"{cache_k.dtype} and {tuple(cache_v.shape)} "
+                         f"{cache_v.dtype}")
+    depth, Bc, Lmax, C = cache_k.shape
+    if (Bc, C) != (B, H * hd):
+        raise ValueError(f"{name}: cache {tuple(cache_k.shape)} does not match "
+                         f"q {tuple(q.shape)}")
+    if (q.dtype, cache_k.dtype) not in _CACHE_PAIRS:
+        raise ValueError(f"{name}: a {cache_k.dtype} cache under a {q.dtype} "
+                         f"q is not taken (pairs: q bf16 with a bf16, f32 or "
+                         f"int8 cache, q f32 with an f32 or int8 cache)")
+    if (cache_k.dtype == torch.int8) != (cache_scales is not None):
+        raise ValueError(f"{name}: an int8 cache comes with its scale planes, "
+                         f"and only an int8 cache")
+    if not 0 <= li < depth:
+        raise ValueError(f"{name}: layer {li} not in [0, {depth})")
+    if not 0 < kv_len <= Lmax:
+        raise ValueError(f"{name}: kv_len {kv_len} not in (0, {Lmax}]")
+    if cache_begin is not None and (cache_begin < 0
+                                    or kv_len != cache_begin + Lq):
+        raise ValueError(f"{name}: kv_len {kv_len} must be cache_begin "
+                         f"{cache_begin} + Lq {Lq}")
+    if cache_scales is not None:
+        for t in cache_scales:
+            if t.dtype != torch.float32 or tuple(t.shape) != (depth, B, Lmax):
+                raise ValueError(f"{name}: cache_scales must be two float32 "
+                                 f"{(depth, B, Lmax)} planes")
+
+
+def _layer_kv(q, cache_k, cache_v, li, kv_len, cache_scales):
+    """Layer ``li`` of the cache as (B, kv_len, H, hd) views, with the
+    (B, kv_len) scale views of an int8 cache; a float cache in another
+    dtype than q is cast to q's dtype, as ``models.var`` does."""
+    B, _, H, hd = q.shape
+    k = cache_k[li, :, :kv_len].view(B, kv_len, H, hd)
+    v = cache_v[li, :, :kv_len].view(B, kv_len, H, hd)
+    if cache_scales is not None:
+        return k, v, tuple(s[li, :, :kv_len] for s in cache_scales)
+    if k.dtype != q.dtype:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    return k, v, None
+
+
+def attention_cache_plain(q, cache_k, cache_v, li: int, kv_len: int,
+                          bias: Optional[torch.Tensor], scale: float,
+                          cache_scales=None) -> torch.Tensor:
+    """Attention of q (B, Lq, H, hd) over keys [0, kv_len) of layer ``li``
+    of the stacked cache (depth, B, L_max, H*hd); ``cache_scales``: the
+    (depth, B, L_max) f32 key and value scale planes of an int8 cache."""
+    _check_cache_args("attention_cache", q, cache_k, cache_v, li, kv_len,
+                      cache_scales)
+    k, v, kv_scales = _layer_kv(q, cache_k, cache_v, li, kv_len, cache_scales)
+    return attention_plain(q, k, v, bias, scale, kv_scales=kv_scales)
+
+
+def attention_cache_write_plain(q, k_new, v_new, cache_k, cache_v, li: int,
+                                cache_begin: int, kv_len: int,
+                                bias: Optional[torch.Tensor], scale: float,
+                                new_scales=None,
+                                cache_scales=None) -> torch.Tensor:
+    """Write k_new/v_new (B, Lq, H, hd) into layer ``li`` of the cache at
+    rows [cache_begin, kv_len) (in place; with ``new_scales``, the (B, Lq)
+    f32 scales of int8 rows, into ``cache_scales`` too), then attend over
+    [0, kv_len)."""
+    _check_cache_args("attention_cache_write", q, cache_k, cache_v, li,
+                      kv_len, cache_scales, cache_begin)
+    B, Lq, H, hd = q.shape
+    cache_k[li, :, cache_begin:kv_len] = k_new.reshape(B, Lq, H * hd)
+    cache_v[li, :, cache_begin:kv_len] = v_new.reshape(B, Lq, H * hd)
+    if cache_scales is not None:
+        for plane, new in zip(cache_scales, new_scales):
+            plane[li, :, cache_begin:kv_len] = new
+    return attention_cache_plain(q, cache_k, cache_v, li, kv_len, bias, scale,
+                                 cache_scales)
+
+
+def _cache_lib():
+    fn = _build.load("attention").sdvar_attention_cache
+    if fn.argtypes is None:
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P] * 11 + [I] * 9 + [LL] * 12 + [ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda(name: str, t: torch.Tensor, dev) -> None:
+    """On q's card, unit stride in the last dim, 16-byte aligned strides
+    and base."""
+    if not t.is_cuda or t.device != dev:
+        raise ValueError(f"{name} must be a CUDA tensor on q's device")
+    es = t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 \
+            or any(s * es % 16 for s in t.stride()[:-1]):
+        raise ValueError(f"{name}: last dim must be contiguous, base and "
+                         f"strides 16-byte aligned, got strides {t.stride()}")
+
+
+def _layer_ptr(t: torch.Tensor, li: int) -> int:
+    return t.data_ptr() + li * t.stride(0) * t.element_size()
+
+
+def _cache_launch(name, q, cache_k, cache_v, li, kv_len, bias, scale,
+                  cache_scales, write=None):
+    """Launch ``sdvar_attention_cache``; ``write`` = (k_new, v_new,
+    new_scales, cache_begin) or None."""
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported")
+    B, Lq, H, hd = q.shape
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {_HEAD_DIMS}")
+    _check_cache_args(name, q, cache_k, cache_v, li, kv_len, cache_scales,
+                      None if write is None else write[3])
+    _check_operand("q", q, q.dtype, hd)
+    dev = q.device
+    for n, t in (("cache_k", cache_k), ("cache_v", cache_v)):
+        _check_cuda(n, t, dev)
+    if cache_k.stride() != cache_v.stride():
+        raise ValueError(f"{name}: caches must share strides")
+    int8 = cache_scales is not None
+    cks = cvs = None
+    s_strides = [0, 0]
+    if int8:
+        cks, cvs = cache_scales
+        if cks.stride() != cvs.stride() or not cks.is_cuda \
+                or cks.device != dev or cvs.device != dev:
+            raise ValueError(f"{name}: scale planes must be on q's device "
+                             "with one set of strides")
+        s_strides = [cks.stride(1), cks.stride(2)]
+    if bias is not None:
+        if (bias.dtype != torch.float32 or not bias.is_cuda
+                or bias.device != dev or not bias.is_contiguous()
+                or tuple(bias.shape) != (Lq, kv_len)):
+            raise ValueError(f"{name}: bias must be a contiguous float32 CUDA "
+                             f"tensor of shape {(Lq, kv_len)}")
+    new_ptrs, new_strides, split = [None] * 4, [0] * 6, kv_len
+    if write is not None:
+        k_new, v_new, new_scales, split = write
+        new_dtype = torch.int8 if int8 else q.dtype
+        for n, t in (("k_new", k_new), ("v_new", v_new)):
+            _check_operand(n, t, new_dtype, hd)
+            if tuple(t.shape) != (B, Lq, H, hd) or t.device != dev:
+                raise ValueError(f"{name}: {n} must be {(B, Lq, H, hd)} on "
+                                 f"q's device, got {tuple(t.shape)}")
+        new_ptrs[:2] = [k_new.data_ptr(), v_new.data_ptr()]
+        new_strides[:4] = [k_new.stride(0), k_new.stride(1), v_new.stride(0),
+                           v_new.stride(1)]
+        if int8:
+            kns, vns = new_scales
+            for t in (kns, vns):
+                if (t.dtype != torch.float32 or tuple(t.shape) != (B, Lq)
+                        or t.device != dev or t.stride() != kns.stride()):
+                    raise ValueError(f"{name}: new_scales must be two float32 "
+                                     f"{(B, Lq)} tensors on q's device with "
+                                     "one pair of strides")
+            new_ptrs[2:] = [kns.data_ptr(), vns.data_ptr()]
+            new_strides[4:] = list(kns.stride())
+    out = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=dev)
+    err = _cache_lib()(
+        q.data_ptr(), _layer_ptr(cache_k, li), _layer_ptr(cache_v, li),
+        _layer_ptr(cks, li) if int8 else None,
+        _layer_ptr(cvs, li) if int8 else None, *new_ptrs,
+        bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        _CODES[q.dtype], _CODES[cache_k.dtype], int(write is not None),
+        B, Lq, kv_len, split, H, hd, q.stride(0), q.stride(1),
+        cache_k.stride(1), cache_k.stride(2), *s_strides, *new_strides,
+        float(scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+    return out
+
+
+def attention_cache_kernel(q, cache_k, cache_v, li: int, kv_len: int,
+                           bias: Optional[torch.Tensor], scale: float,
+                           cache_scales=None) -> torch.Tensor:
+    """``attention_cache_plain`` on the card: one launch reads layer ``li``
+    of the cache in place (no slice is made). Adds one per launch to
+    ``attention_cache_kernel.launches``."""
+    out = _cache_launch("attention_cache_kernel", q, cache_k, cache_v, li,
+                        kv_len, bias, scale, cache_scales)
+    attention_cache_kernel.launches += 1
+    return out
+
+
+def attention_cache_write_kernel(q, k_new, v_new, cache_k, cache_v, li: int,
+                                 cache_begin: int, kv_len: int,
+                                 bias: Optional[torch.Tensor], scale: float,
+                                 new_scales=None,
+                                 cache_scales=None) -> torch.Tensor:
+    """``attention_cache_write_plain`` on the card in one launch: the new
+    rows go into the cache and are attended over in the same kernel. Adds
+    one per launch to ``attention_cache_write_kernel.launches`` (float
+    cache) or ``.launches_int8`` (int8 cache)."""
+    out = _cache_launch("attention_cache_write_kernel", q, cache_k, cache_v,
+                        li, kv_len, bias, scale, cache_scales,
+                        (k_new, v_new, new_scales, cache_begin))
+    if cache_scales is not None:
+        attention_cache_write_kernel.launches_int8 += 1
+    else:
+        attention_cache_write_kernel.launches += 1
+    return out
+
+
+attention_cache_kernel.launches = 0
+attention_cache_write_kernel.launches = 0
+attention_cache_write_kernel.launches_int8 = 0

@@ -1,5 +1,5 @@
 """Top-k / top-p sampling through the fused sampler, CFG batch helpers and
-per-request seed streams.
+per-request seed streams (``request_seeds``, ``fold_seeds``, ``row_seeds``).
 
 Sampling always goes through the fused sampler (Triton kernel on the card,
 its plain version on the CPU) with one seed per row. A row's seed depends
@@ -26,6 +26,7 @@ from sdvar_tpu_torch.ops.kernels.sampling import (
 
 _MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
+_STREAM = 0x7F4A7C15  # keeps fold_seeds' constants apart from row_seeds'
 
 
 def request_seeds(seed: Union[int, Sequence[int], torch.Tensor], batch: int,
@@ -42,6 +43,15 @@ def request_seeds(seed: Union[int, Sequence[int], torch.Tensor], batch: int,
     if s.shape[0] != batch:
         raise ValueError(f"need {batch} request seeds, got {s.shape[0]}")
     return s & _MASK32
+
+
+def fold_seeds(req_seeds: torch.Tensor, data: int) -> torch.Tensor:
+    """(B,) request seeds -> (B,) request seeds of the sub-stream ``data``
+    (a non-negative int): a pure function of (seed, data), the counterpart
+    of the JAX package's ``fold_key`` for per-request streams. The
+    speculative engine folds its draft and target streams out of a
+    request's seed this way."""
+    return fmix32(req_seeds ^ fmix32((data * _GOLDEN + _STREAM) & _MASK32))
 
 
 def row_seeds(req_seeds: torch.Tensor, si: int, l: int) -> torch.Tensor:

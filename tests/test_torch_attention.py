@@ -1,6 +1,8 @@
-"""Port attention (plain version, the CPU path) against the JAX package's
-Pallas kernel in interpret mode: batch-major and token-major K/V, with and
-without an additive bias holding -inf entries and a fully masked row."""
+"""Port attention (plain versions, the CPU path) against the JAX package's
+Pallas kernels in interpret mode: batch-major and token-major K/V, with and
+without an additive bias holding -inf entries and a fully masked row; and
+the full-cache and cache-write forms against ``ops/pallas/experimental.py``
+(the JAX token-major caches permuted to the port's batch-major layout)."""
 
 import numpy as np
 import pytest
@@ -9,7 +11,16 @@ import torch
 import jax.numpy as jnp
 
 from sdvar_tpu.ops.pallas.attention import pallas_attention
-from sdvar_tpu_torch.ops.attention import attention
+from sdvar_tpu.ops.pallas.experimental import (
+    pallas_attention_cache,
+    pallas_attention_cache_write,
+)
+from sdvar_tpu.ops.quantization import quantize_tokens as j_quantize_tokens
+from sdvar_tpu_torch.ops.attention import (
+    attention,
+    attention_cache,
+    attention_cache_write,
+)
 
 B, H, HD = 2, 2, 64  # H*hd a multiple of 128, so the Pallas kernel really runs
 
@@ -126,3 +137,101 @@ def test_int8_kv_equals_dequantised_float_attention():
                     kv_scales=(torch.from_numpy(ks), torch.from_numpy(vs)))
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * want.abs().max().item())
+
+
+DEPTH, LMAX, LI = 3, 48, 1
+C = H * HD
+
+
+def _tm_cache(rng, int8):
+    """A JAX token-major (depth, L_max, B, C) K and V cache, and, int8, its
+    (depth, B, L_max) scale planes (quantized by the JAX package)."""
+    k, v = (rng.standard_normal((DEPTH, LMAX, B, C)).astype(np.float32)
+            for _ in range(2))
+    if not int8:
+        return k, v, None
+    (kq, ks), (vq, vs) = (j_quantize_tokens(jnp.asarray(t)) for t in (k, v))
+    return (np.asarray(kq), np.asarray(vq),
+            tuple(np.ascontiguousarray(np.asarray(t).transpose(0, 2, 1))
+                  for t in (ks, vs)))
+
+
+def _bm(cache_tm):
+    """Token-major (depth, L_max, B, C) -> the port's (depth, B, L_max, C)."""
+    return torch.from_numpy(np.ascontiguousarray(cache_tm.transpose(0, 2, 1, 3)))
+
+
+def _mask_bias(Lq, Lk):
+    return np.where(np.random.default_rng(9).random((Lq, Lk)) < 0.3,
+                    -np.inf, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("kv_len,Lq,int8,with_bias", [
+    (14, 9, False, False), (30, 16, False, True),
+    (29, 8, True, False), (40, 8, True, True)])
+def test_cache_plain_matches_pallas(kv_len, Lq, int8, with_bias):
+    """``attention_cache`` on the CPU against ``pallas_attention_cache``
+    (the JAX tests' cases), within the JAX tests' 1e-4."""
+    rng = np.random.default_rng(kv_len)
+    q = rng.standard_normal((B, Lq, H, HD)).astype(np.float32)
+    ck, cv, cs = _tm_cache(rng, int8)
+    bias = _mask_bias(Lq, kv_len) if with_bias else None
+    want = np.asarray(pallas_attention_cache(
+        jnp.asarray(q), jnp.asarray(ck).reshape(DEPTH, LMAX, B, H, HD),
+        jnp.asarray(cv).reshape(DEPTH, LMAX, B, H, HD),
+        jnp.asarray(LI, jnp.int32), kv_len,
+        None if bias is None else jnp.asarray(bias), 0.125,
+        kv_scales=None if cs is None else tuple(jnp.asarray(t) for t in cs),
+        interpret=True))
+    got = attention_cache(
+        torch.from_numpy(q), _bm(ck), _bm(cv), LI, kv_len,
+        None if bias is None else torch.from_numpy(bias), 0.125,
+        None if cs is None else tuple(torch.from_numpy(t) for t in cs))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bg,Lq,kv_len,int8,with_bias", [
+    (5, 9, 14, False, False), (14, 16, 30, False, True),
+    (21, 8, 29, True, False), (0, 8, 8, True, True)])
+def test_cache_write_plain_matches_pallas(bg, Lq, kv_len, int8, with_bias):
+    """``attention_cache_write`` on the CPU against
+    ``pallas_attention_cache_write`` (the JAX tests' cases): the output
+    within 1e-4, the written caches and scale planes exactly equal."""
+    rng = np.random.default_rng(bg + 100)
+    q = rng.standard_normal((B, Lq, H, HD)).astype(np.float32)
+    ck, cv, cs = _tm_cache(rng, int8)
+    knew, vnew = (rng.standard_normal((Lq, B, C)).astype(np.float32)
+                  for _ in range(2))
+    ns = None
+    if int8:
+        (kq, ks), (vq, vs) = (j_quantize_tokens(jnp.asarray(t))
+                              for t in (knew, vnew))
+        knew, vnew = np.asarray(kq), np.asarray(vq)
+        ns = (np.asarray(ks).T.copy(), np.asarray(vs).T.copy())  # (B, Lq)
+    bias = _mask_bias(Lq, kv_len) if with_bias else None
+    res = pallas_attention_cache_write(
+        jnp.asarray(q), jnp.asarray(knew), jnp.asarray(vnew),
+        jnp.asarray(ck).reshape(DEPTH, LMAX, B, H, HD),
+        jnp.asarray(cv).reshape(DEPTH, LMAX, B, H, HD),
+        jnp.asarray(LI, jnp.int32), bg, kv_len,
+        None if bias is None else jnp.asarray(bias), 0.125,
+        new_scales=None if ns is None else tuple(jnp.asarray(t) for t in ns),
+        cache_scales=None if cs is None else tuple(jnp.asarray(t) for t in cs),
+        interpret=True)
+    tk, tv = _bm(ck), _bm(cv)
+    ts = None if cs is None else tuple(torch.from_numpy(t) for t in cs)
+    as_new = lambda t: torch.from_numpy(
+        np.ascontiguousarray(t.transpose(1, 0, 2))).view(B, Lq, H, HD)
+    got = attention_cache_write(
+        torch.from_numpy(q), as_new(knew), as_new(vnew), tk, tv, LI, bg,
+        kv_len, None if bias is None else torch.from_numpy(bias), 0.125,
+        None if ns is None else tuple(torch.from_numpy(t) for t in ns), ts)
+    np.testing.assert_allclose(got.numpy(), np.asarray(res[0]), rtol=1e-4,
+                               atol=1e-4)
+    for port, jax_out in zip((tk, tv), res[1:3]):
+        np.testing.assert_array_equal(
+            port.numpy(), np.asarray(jax_out).reshape(DEPTH, LMAX, B, C)
+            .transpose(0, 2, 1, 3))
+    if int8:
+        for port, jax_out in zip(ts, res[3:]):
+            np.testing.assert_array_equal(port.numpy(), np.asarray(jax_out))

@@ -41,6 +41,8 @@ def test_import_leaves_jax_out():
         "import sdvar_tpu_torch.engine.decode, sdvar_tpu_torch.utils.from_jax;"
         "import sdvar_tpu_torch.models.vqvae, sdvar_tpu_torch.ops.kernels._build;"
         "import sdvar_tpu_torch.engine.serving, sdvar_tpu_torch.ops.conv_s8;"
+        "import sdvar_tpu_torch.engine.speculative, sdvar_tpu_torch.engine.probes;"
+        "import sdvar_tpu_torch.ops.masks;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sdvar_tpu')];"
         "assert not bad, bad"
@@ -86,3 +88,26 @@ def test_server_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         GenerationServer(cfg, vae_cfg, params, vae)
     GenerationServer(cfg, vae_cfg, params, vae, device="cpu")
+
+
+def test_speculative_engine_raises_without_a_card(monkeypatch):
+    """Built on parameters of the default device, the engine asks for the
+    card, as ``generate_images`` does; ``device="cpu"`` runs the plain
+    path."""
+    from sdvar_tpu_torch.config import VARConfig, VQVAEConfig
+    from sdvar_tpu_torch.engine.speculative import SpeculativeEngine
+    from sdvar_tpu_torch.models.var import init_var_params
+    from sdvar_tpu_torch.models.vqvae import init_vqvae_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = VARConfig(depth=1, patch_nums=(1, 2), vocab_size=64, Cvae=8,
+                    head_dim=32)
+    vae_cfg = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=(1, 2))
+    params = init_var_params(cfg, device="cpu")
+    vae = init_vqvae_params(vae_cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpeculativeEngine(vae_cfg, cfg, cfg, vae, params, params)
+    eng = SpeculativeEngine(vae_cfg, cfg, cfg, vae, params, params,
+                            device="cpu")
+    f_hat, stats = eng.generate_speculative([0], 0)
+    assert f_hat.shape == (1, 8, 2, 2) and stats.accept_count == 2

@@ -11,11 +11,19 @@ import math
 import pytest
 import torch
 
-from sdvar_tpu_torch.ops.kernels.attention import attention_kernel, attention_plain
+from sdvar_tpu_torch.ops.kernels.attention import (
+    attention_cache_kernel,
+    attention_cache_plain,
+    attention_cache_write_kernel,
+    attention_cache_write_plain,
+    attention_kernel,
+    attention_plain,
+)
 from sdvar_tpu_torch.ops.kernels.conv_s8 import conv3x3_s8_kernel, conv3x3_s8_plain
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import int8_matmul_kernel, int8_matmul_plain
 from sdvar_tpu_torch.ops.kernels.quantize import act_quantize_kernel, act_quantize_plain
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
+from sdvar_tpu_torch.ops.quantization import quantize_tokens
 
 pytestmark = pytest.mark.gpu
 
@@ -215,3 +223,143 @@ def test_w8a8_pixel_decode_launches_once_per_site(cuda):
     torch.cuda.synchronize()
     assert conv3x3_s8_kernel.launches == sum(s is not None for s in sites) == 8
     assert img.shape == (2, 3, 48, 48) and torch.isfinite(img).all()
+
+
+# (q dtype, cache dtype): every cache the decode makes, under its model
+CACHE_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+               (torch.bfloat16, torch.float32), (torch.bfloat16, torch.int8),
+               (torch.float32, torch.int8)]
+
+
+def _cache(dev, g, dtype, depth, B, Lmax, C):
+    """A stacked (depth, B, Lmax, C) K and V cache full of other tokens,
+    with (depth, B, Lmax) scale planes log-uniform in [1e-3, 1e2] for int8."""
+    if dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, (depth, B, Lmax, C), device=dev,
+                              generator=g, dtype=torch.int8) for _ in range(2))
+        return k, v, tuple(_log_uniform((depth, B, Lmax), 1e-3, 1e2, dev, g)
+                           for _ in range(2))
+    k, v = (torch.randn(depth, B, Lmax, C, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    return k, v, None
+
+
+def _bias(dev, g, Lq, Lk):
+    bias = torch.randn(Lq, Lk, device=dev, generator=g)
+    bias[:, ::3] = float("-inf")
+    bias[-1] = float("-inf")
+    return bias
+
+
+def _tol(q_dtype, want):
+    return (1e-4 if q_dtype == torch.float32 else 2e-2) * max(
+        want.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("bg,Lq", [(0, 1), (5, 9), (60, 70), (63, 130),
+                                   (424, 256)])
+@pytest.mark.parametrize("q_dtype,c_dtype", CACHE_PAIRS)
+def test_attention_cache_write_kernel(cuda, q_dtype, c_dtype, bg, Lq, with_bias):
+    """The fused write + attend against its plain version: the cache
+    (values and scale planes, every layer and row) bit-equal afterwards,
+    the output within the attention kernel's tolerance of the plain one and
+    bit-equal to the unfused pair (copy into the cache, then
+    ``attention_kernel`` on the layer's slice, cast as ``models.var``
+    casts it). Ragged cache_begin, 64-key tiles and 64-query tiles that
+    straddle it (5 + 9, 60 + 70, 63 + 130), and the decode's scale 9."""
+    g = torch.Generator(device=cuda).manual_seed(bg * 1000 + Lq)
+    depth, B, H, hd, li = 3, 3, 2, 64, 1
+    Lmax, kv_len, C = bg + Lq + 5, bg + Lq, H * hd
+    q = torch.randn(B, Lq, H, hd, device=cuda, generator=g)
+    q = (q * (0.01 if c_dtype == torch.int8 else 1.0)).to(q_dtype)
+    ck, cv, cs = _cache(cuda, g, c_dtype, depth, B, Lmax, C)
+    knew, vnew = (torch.randn(B, Lq, H, hd, device=cuda, generator=g).to(q_dtype)
+                  for _ in range(2))
+    ns = None
+    if c_dtype == torch.int8:
+        (knew, ks), (vnew, vs) = (quantize_tokens(t.reshape(B, Lq, C))
+                                  for t in (knew, vnew))
+        knew, vnew, ns = knew.view(B, Lq, H, hd), vnew.view(B, Lq, H, hd), (ks, vs)
+    bias = _bias(cuda, g, Lq, kv_len) if with_bias else None
+    clone = lambda c: None if c is None else tuple(t.clone() for t in c)
+    (ck_p, cv_p), cs_p, (ck_u, cv_u), cs_u = clone((ck, cv)), clone(cs), clone((ck, cv)), clone(cs)
+    attention_cache_write_kernel.launches = attention_cache_write_kernel.launches_int8 = 0
+    got = attention_cache_write_kernel(q, knew, vnew, ck, cv, li, bg, kv_len,
+                                       bias, 0.125, ns, cs)
+    torch.cuda.synchronize()
+    counts = (attention_cache_write_kernel.launches,
+              attention_cache_write_kernel.launches_int8)
+    assert counts == ((0, 1) if c_dtype == torch.int8 else (1, 0))
+    want = attention_cache_write_plain(q, knew, vnew, ck_p, cv_p, li, bg,
+                                       kv_len, bias, 0.125, ns, cs_p)
+    assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+    if cs is not None:
+        assert all(torch.equal(a, b) for a, b in zip(cs, cs_p))
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(q_dtype, want.float()), err
+    # the unfused pair
+    ck_u[li, :, bg:kv_len] = knew.reshape(B, Lq, C)
+    cv_u[li, :, bg:kv_len] = vnew.reshape(B, Lq, C)
+    kv_scales = None
+    if cs_u is not None:
+        for plane, new in zip(cs_u, ns):
+            plane[li, :, bg:kv_len] = new
+        kv_scales = (cs_u[0][li, :, :kv_len], cs_u[1][li, :, :kv_len])
+    k = ck_u[li, :, :kv_len].view(B, kv_len, H, hd)
+    v = cv_u[li, :, :kv_len].view(B, kv_len, H, hd)
+    if kv_scales is None and k.dtype != q_dtype:
+        k, v = k.to(q_dtype), v.to(q_dtype)
+    assert torch.equal(got, attention_kernel(q, k, v, bias, 0.125,
+                                             kv_scales=kv_scales))
+    if with_bias:
+        assert not got[:, -1].any() and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("Lq,kv_len", [(1, 1), (9, 14), (130, 255), (256, 680)])
+@pytest.mark.parametrize("q_dtype,c_dtype", CACHE_PAIRS)
+def test_attention_cache_kernel(cuda, q_dtype, c_dtype, Lq, kv_len, with_bias):
+    """Attention over layer li of the stacked cache, read in place: within
+    tolerance of the plain version and bit-equal to ``attention_kernel`` on
+    the layer's slice; the cache is left as it was."""
+    g = torch.Generator(device=cuda).manual_seed(Lq * 1000 + kv_len)
+    depth, B, H, hd, li = 3, 2, 3, 64, 2
+    Lmax, C = kv_len + 9, H * hd
+    q = torch.randn(B, Lq, H, hd, device=cuda, generator=g)
+    q = (q * (0.01 if c_dtype == torch.int8 else 1.0)).to(q_dtype)
+    ck, cv, cs = _cache(cuda, g, c_dtype, depth, B, Lmax, C)
+    before = (ck.clone(), cv.clone())
+    bias = _bias(cuda, g, Lq, kv_len) if with_bias else None
+    attention_cache_kernel.launches = 0
+    got = attention_cache_kernel(q, ck, cv, li, kv_len, bias, 0.125, cs)
+    torch.cuda.synchronize()
+    assert attention_cache_kernel.launches == 1
+    want = attention_cache_plain(q, ck, cv, li, kv_len, bias, 0.125, cs)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(q_dtype, want.float()), err
+    assert torch.equal(ck, before[0]) and torch.equal(cv, before[1])
+    k = ck[li, :, :kv_len].view(B, kv_len, H, hd)
+    v = cv[li, :, :kv_len].view(B, kv_len, H, hd)
+    kv_scales = None if cs is None else (cs[0][li, :, :kv_len], cs[1][li, :, :kv_len])
+    if kv_scales is None and k.dtype != q_dtype:
+        k, v = k.to(q_dtype), v.to(q_dtype)
+    assert torch.equal(got, attention_kernel(q, k, v, bias, 0.125,
+                                             kv_scales=kv_scales))
+
+
+def test_cache_kernels_refuse_what_they_do_not_take(cuda):
+    B, Lq, H, hd = 2, 4, 2, 64
+    q = torch.zeros(B, Lq, H, hd, device=cuda)
+    ck = torch.zeros(2, B, 16, H * hd, device=cuda)
+    new = torch.zeros(B, Lq, H, hd, device=cuda)
+    with pytest.raises(ValueError, match="cache_begin"):
+        attention_cache_write_kernel(q, new, new, ck, ck.clone(), 0, 3, 8,
+                                     None, 1.0)
+    with pytest.raises(ValueError, match="not taken"):
+        attention_cache_kernel(q, ck.bfloat16(), ck.bfloat16(), 0, 8, None, 1.0)
+    with pytest.raises(ValueError, match="scale planes"):
+        attention_cache_kernel(q, ck.to(torch.int8), ck.to(torch.int8), 0, 8,
+                               None, 1.0)
+    with pytest.raises(ValueError, match="layer"):
+        attention_cache_kernel(q, ck, ck.clone(), 2, 8, None, 1.0)

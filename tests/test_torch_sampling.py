@@ -120,3 +120,19 @@ def test_greedy_matches_jax():
     logits[0, 0, [3, 9]] = 10.0  # a tie: both take the first index
     np.testing.assert_array_equal(S.greedy(torch.from_numpy(logits)).numpy(),
                                   np.asarray(JS.greedy(jnp.asarray(logits))))
+
+
+def test_fold_seeds_is_a_pure_per_request_function():
+    """fold_seeds(seed, data): each request's sub-stream depends on its
+    own seed and ``data`` only (not on its slot), stays in [0, 2^32), and
+    the draft, target and retry streams differ from each other and from
+    the request's own."""
+    req = S.request_seeds([7, 123456789, 2 ** 32 - 1], 3, "cpu")
+    a = S.fold_seeds(req, 1)
+    assert torch.equal(a, S.fold_seeds(req, 1))
+    assert torch.equal(S.fold_seeds(req.flip(0), 1), a.flip(0))
+    assert int(a.min()) >= 0 and int(a.max()) < 2 ** 32
+    streams = [req, a, S.fold_seeds(req, 2), S.fold_seeds(a, 1001)]
+    for i in range(len(streams)):
+        for j in range(i):
+            assert not (streams[i] == streams[j]).any()

@@ -2,8 +2,8 @@
 package's, on the small stack of ``tests/test_serving.py`` (depth 2,
 patch_nums (1, 2, 3), 48px): completion, determinism across batch
 composition, error payloads, the pixel-decoder dispatch, calibrated W8A8
-sites, the W8A8 + INT8-KV configuration, uint8 delivery, and greedy
-parity with the JAX server."""
+sites, the W8A8 + INT8-KV configuration, uint8 delivery, greedy parity
+with the JAX server, and speculative mode."""
 
 import numpy as np
 import pytest
@@ -19,7 +19,12 @@ from sdvar_tpu.engine import decode as JD
 from sdvar_tpu.engine.serving import GenerationServer as JGenerationServer
 from sdvar_tpu.models.var import init_var_params as j_init_var
 from sdvar_tpu.models.vqvae import init_vqvae_params as j_init_vqvae
-from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
+from sdvar_tpu_torch.config import (
+    SamplingConfig,
+    SpeculativeConfig,
+    VARConfig,
+    VQVAEConfig,
+)
 from sdvar_tpu_torch.engine import decode as D
 from sdvar_tpu_torch.engine import serving as S
 from sdvar_tpu_torch.engine.serving import GenerationServer
@@ -217,13 +222,67 @@ def test_greedy_f32_server_matches_jax(stack, monkeypatch):
 def test_unported_modes_and_bad_options_raise(stack, sites):
     with pytest.raises(NotImplementedError, match="item 13"):
         _mk(stack, mesh_cfg=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _mk(stack, draft_cfg=stack[4], draft_params={})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _mk(stack, spec=object())
+    with pytest.raises(ValueError, match="draft_params"):
+        _mk(stack, draft_cfg=stack[4])
+    with pytest.raises(ValueError, match="draft_params"):
+        _mk(stack, spec=SpeculativeConfig())
     with pytest.raises(ValueError, match="bf16 server"):
         _mk(stack, pixel_sites=sites)  # an f32 server
     with pytest.raises(ValueError, match="deliver"):
         _mk(stack, deliver="png")
     with pytest.raises(ValueError, match="bucket"):
         _mk(stack, max_batch=8)
+
+
+@pytest.fixture(scope="module")
+def draft(stack):
+    """Another JAX-initialised VAR of the stack's config, as the draft."""
+    vp = jax.tree.map(np.asarray, j_init_var(stack[0], jax.random.PRNGKey(2)))
+    return var_params_from_jax(vp, device="cpu")
+
+
+def _spec(stack, draft, **kw):
+    return _mk(stack, draft_cfg=stack[4], draft_params=draft,
+               spec=SpeculativeConfig(gamma=2), buckets=[4],
+               samp=SamplingConfig(cfg=1.5, top_k=8, top_p=0.9),
+               max_wait_ms=300.0, **kw)
+
+
+def test_speculative_server(stack, draft):
+    """Speculative mode: every request comes back ok, each batch's images
+    are the engine's own on that batch (padding slots: label 0, seed 0),
+    and the spec_* counters add up over the batches."""
+    srv = _spec(stack, draft)
+    reqs = [(i % 10, 40 + i) for i in range(7)]
+    results = _serve(srv, reqs)
+    assert all(r.ok and r.image.shape == (3, 48, 48) for r in results)
+    st = srv.stats
+    nb = st["batches"]
+    assert nb == 2 and st["completed"] == 7
+    S = len(PNS)
+    # every scale of every batch is accepted, by match or by force
+    assert st["spec_accept_count"] == S * nb
+    assert 0 <= st["spec_forced_accepts"] <= st["spec_accept_count"]
+    # a drafted scale is accepted on its match or rejected (a forced
+    # accept is a rejected scale taken all the same)
+    assert st["spec_draft_calls"] == (st["spec_accept_count"]
+                                      - st["spec_forced_accepts"]
+                                      + st["spec_reject_count"])
+    assert -(-S // 2) * nb <= st["spec_target_calls"] <= st["spec_draft_calls"]
+    labels = [lab for lab, _ in reqs[:4]]
+    seeds = [seed for _, seed in reqs[:4]]
+    f_hat, _ = srv.engine.generate_speculative(labels, seeds, srv.spec, srv.samp)
+    img = srv.engine.decode_image(f_hat).numpy()
+    for i in range(4):
+        np.testing.assert_array_equal(results[i].image, img[i])
+
+
+def test_speculative_server_same_batch_same_bits(stack, draft):
+    """Acceptance is batch-global, so a request's image is a function of
+    its batch; the same batch submitted twice gives the same bits."""
+    reqs = [(2, 5), (7, 6), (4, 9)]
+    first = _serve(_spec(stack, draft, deliver="u8"), reqs)
+    again = _serve(_spec(stack, draft, deliver="u8"), reqs)
+    for a, b in zip(first, again):
+        assert a.ok and b.ok and a.image.dtype == np.uint8
+        np.testing.assert_array_equal(a.image, b.image)

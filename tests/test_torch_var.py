@@ -5,6 +5,8 @@ f32; and the same cached forward with INT8 weights (w8a8, w8) and an INT8
 KV cache, on the JAX package's quantized tree carried over by the
 bridge."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from sdvar_tpu.ops import quantization as JQ
 from sdvar_tpu.ops.masks import block_causal_bias
 from sdvar_tpu_torch.config import VARConfig
 from sdvar_tpu_torch.models import var as M
+from sdvar_tpu_torch.ops import attention as A
 from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
 from sdvar_tpu_torch.utils.from_jax import var_params_from_jax
 
@@ -140,6 +143,54 @@ def test_quantized_cached_forward_matches_per_scale(stack, mode, kv):
         assert dk.max() <= 1 and (dk != 0).mean() < 1e-3
         np.testing.assert_allclose(tcache.k_s.numpy()[:, :, :ed],
                                    np.asarray(jcache.k_s)[:, :, :ed], rtol=1e-5)
+
+
+def _cached_run(tcfg, p_t, dtype, kv, cache_kernel):
+    """Per-scale outputs of the cached forward and the cache, with the
+    cache-kernel switch as given (restored afterwards)."""
+    rng = np.random.default_rng(7)
+    cond = torch.from_numpy(rng.standard_normal((B2, tcfg.embed_dim)).astype(np.float32))
+    if kv == "int8":
+        cache = QuantizedKVCache.create(tcfg, B2, device="cpu")
+    else:
+        cache = M.KVCache.create(tcfg, B2, device="cpu", dtype=torch.float32
+                                 if kv == "f32" else torch.bfloat16)
+    prev = A.use_cache_kernel()
+    A.set_cache_kernel(cache_kernel)
+    try:
+        hs = [M.apply_transformer(
+            tcfg, p_t, torch.from_numpy(rng.standard_normal(
+                (B2, ed - bg, tcfg.embed_dim)).astype(np.float32)).to(dtype),
+            cond, cache=cache, cache_begin=bg, kv_len=ed)
+            for bg, ed in tcfg.begin_ends]
+    finally:
+        A.set_cache_kernel(prev)
+    return hs, cache
+
+
+@pytest.mark.parametrize("dtype,kv", [
+    (torch.bfloat16, "bf16"), (torch.float32, "f32"), (torch.bfloat16, "f32"),
+    (torch.float32, "int8"), (torch.bfloat16, "int8")])
+def test_cache_kernel_switch_gives_the_unfused_bits(stack, dtype, kv):
+    """With ``set_cache_kernel(True)`` each layer's cache write and
+    attention are one fused call; for every cache the decode makes under
+    its model, the outputs of every scale and the cache are the unfused
+    path's bits."""
+    _, tcfg, _, p_t = stack
+    (h0, c0), (h1, c1) = (_cached_run(tcfg, p_t, dtype, kv, on)
+                          for on in (False, True))
+    assert all(torch.equal(a, b) for a, b in zip(h0, h1))
+    assert all(torch.equal(getattr(c0, f.name), getattr(c1, f.name))
+               for f in dataclasses.fields(c0))
+
+
+def test_cache_kernel_switch_refuses_other_pairings(stack):
+    """A bf16 cache under an f32 model is not a pairing the fused path
+    takes: it raises, rather than take the unfused route quietly."""
+    _, tcfg, _, p_t = stack
+    with pytest.raises(ValueError, match="not taken"):
+        _cached_run(tcfg, p_t, torch.float32, "bf16", True)
+    assert not A.use_cache_kernel()
 
 
 def test_uncached_forward_with_block_causal_bias(stack):
