@@ -16,7 +16,12 @@ scale, then VAR-d16 -> VAR-d30 with every drafted scale accepted and with
 the real accept rule, beside the d30 baseline) and the server in
 speculative mode; then the continuous-batching ``GenerationServer``
 answering requests, all-int8 (W8A8 + INT8 KV with the calibrated W8A8
-pixel decoder, uint8 delivery) and bf16. It checks the outputs and the
+pixel decoder, uint8 delivery) and bf16; then fp8 weights beside bf16,
+and the entry points and measuring tools as a user runs them: the FID
+sampler (``sample_batches`` into an npz), ``python -m
+sdvar_tpu_torch.bench`` (one JSON line), the benchmark CLI's gamma and quant
+modes, the serving bench and the int8 matmul microbenchmark (the fused
+W8A8 kernel's path). It checks the outputs and the
 kernel launch counts of each path, holds small stacks on the card against
 the CPU plain path, times the three pixel decoders and the kernels. The
 last stdout line is ``{"ok": true, "device": {...}}``; any failed phase
@@ -30,9 +35,13 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +53,7 @@ from sdvar_tpu_torch.config import (
     VQVAEConfig,
     var_config_pair,
 )
+from sdvar_tpu_torch import benchmark_cli
 from sdvar_tpu_torch.engine.decode import decode_all_scales, generate_images
 from sdvar_tpu_torch.engine.serving import GenerationServer
 from sdvar_tpu_torch.engine.speculative import SpeculativeEngine
@@ -77,6 +87,10 @@ from sdvar_tpu_torch.ops.kernels.quantize import (
     act_quantize_plain,
 )
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
+from sdvar_tpu_torch.ops.kernels.w8a8_fused import (
+    w8a8_fused_kernel,
+    w8a8_fused_plain,
+)
 from sdvar_tpu_torch.ops.quantization import (
     QuantizedKVCache,
     dequantize_tokens,
@@ -85,7 +99,10 @@ from sdvar_tpu_torch.ops.quantization import (
     quantize_var_params,
     quantize_weight,
 )
+from sdvar_tpu_torch.sample_fid import balanced_labels, sample_batches
+from sdvar_tpu_torch.tools import bench_serving, microbench_int8_matmul
 from sdvar_tpu_torch.utils.device import full_f32
+from sdvar_tpu_torch.utils.fid import create_npz_from_arrays
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # int8 tensor-core OP/s, f32 FLOP/s outside the tensor cores; and the int32
@@ -208,6 +225,16 @@ def conv3x3_s8_bound(B, H, W, C, O, out_itemsize):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def w8a8_fused_bound(M, K, N, s8):
+    """(bound ms, bound_by): bf16 x, the int8 weights and the f32 scales
+    read once, the bf16 output written once, vs 2*M*K*N operations at the
+    int8 (s8) or bf16 tensor-core peak."""
+    nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 2 * M * K * N / (INT8_OPS if s8 else BF16_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_device_and_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -217,10 +244,10 @@ def phase_device_and_build():
     log(f"[device] torch: {name}, {torch.cuda.device_count()} card(s), "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    sources = ("attention", "matmul_int8", "conv_s8")
+    sources = ("attention", "matmul_int8", "conv_s8", "w8a8_fused")
     _build.build(sources)  # one nvcc each, all started together
-    log(f"[build] csrc/attention.cu, csrc/matmul_int8.cu and csrc/conv_s8.cu "
-        f"built in {time.time() - t0:.1f} s")
+    log(f"[build] {', '.join(f'csrc/{s}.cu' for s in sources)} built in "
+        f"{time.time() - t0:.1f} s")
     for src in sources:
         for line in _build.build_log(src).splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
@@ -450,6 +477,7 @@ def _reset_counts():
     attention_cache_write_kernel.launches = 0
     attention_cache_write_kernel.launches_int8 = 0
     attention_cache_kernel.launches = 0
+    w8a8_fused_kernel.launches = 0
 
 
 def _read_counts():
@@ -461,7 +489,8 @@ def _read_counts():
             "conv3x3_s8": conv3x3_s8_kernel.launches,
             "cache_write": attention_cache_write_kernel.launches,
             "cache_write_int8": attention_cache_write_kernel.launches_int8,
-            "attention_cache": attention_cache_kernel.launches}
+            "attention_cache": attention_cache_kernel.launches,
+            "w8a8_fused": w8a8_fused_kernel.launches}
 
 
 def _want(**counts):
@@ -873,10 +902,10 @@ def phase_conv_times(launches, per_decode, errs):
             "launches_per_pixel_decode": per_decode}
 
 
-def phase_small_reference():
+def phase_small_reference(quant=None):
     """The whole CUDA path against the CPU plain path on a small stack
-    (depth 2, patch_nums (1, 2, 3)), greedy and f32: equal ids, close
-    images."""
+    (depth 2, patch_nums (1, 2, 3)), greedy and f32, with plain weights or
+    ``quantize_var_params(mode=quant)``'s: equal ids, close images."""
     pns = (1, 2, 3)
     vc = VARConfig(depth=2, num_classes=10, patch_nums=pns, vocab_size=64,
                    Cvae=8, head_dim=32)
@@ -887,6 +916,8 @@ def phase_small_reference():
         p = init_var_params(vc, seed=3, device="cpu")
         p["head"]["w"].normal_(0, 0.05, generator=torch.Generator().manual_seed(4))
         q = init_vqvae_params(qc, seed=4, device="cpu", eini=1.0)
+        if quant:
+            p = quantize_var_params(p, mode=quant)
         p, q = _to(p, dev), _to(q, dev)
         f_hat, ids = decode_all_scales(vc, qc, p, q["quant"], [3, 7], 0, samp,
                                        torch.float32, return_ids=True,
@@ -895,7 +926,8 @@ def phase_small_reference():
             out[dev] = (ids.cpu(), fhat_to_img(qc, q, f_hat).cpu())
     same_ids = torch.equal(out["cpu"][0], out["cuda"][0])
     err = (out["cpu"][1] - out["cuda"][1]).abs().max().item()
-    log(f"[reference] small stack, card vs CPU plain path: ids equal "
+    log(f"[reference] small stack{f' ({quant})' if quant else ''}, card vs "
+        f"CPU plain path: ids equal "
         f"{same_ids}, image max|d| {err:.2e} (limit 1e-3)")
     if not same_ids or err > 1e-3:
         raise AssertionError("card path disagrees with the CPU reference")
@@ -1550,6 +1582,251 @@ def phase_cache_kernel_times(launches, int8_launches, errs):
     ]
 
 
+# the microbenchmark's six d30 GEMMs (x (32, L, K): M = 32 * L) and one
+# ragged M: scale 4's 25 tokens, M = 800, half a 64-row tile over
+FUSED_SHAPES = microbench_int8_matmul.SHAPES + ((25, 1920, 7680, "fc1 s4"),)
+
+
+def phase_fused_checks():
+    """The fused W8A8 kernel (row 10) against its plain version at the
+    microbenchmark's shapes. The s8 form must be bit-equal: both take the
+    exact integer sum and round x / xs, float(acc) * xs and * ws as
+    separate f32 operations. The bf16 form's f32 sum is exact while every
+    partial sum stays below 2^24 and rounds beyond, in another order than
+    the plain product's: within 2^-7 of max|y| (the output's bf16 step at
+    its largest values) and different on at most 1e-3 of the outputs."""
+    errs = {}
+    for L, K, N, tag in FUSED_SHAPES:
+        x, wq, ws, _ = microbench_int8_matmul.operands(L, K, N, DEV, seed=11)
+        for s8 in (True, False):
+            got = w8a8_fused_kernel(x, wq, ws, s8)
+            torch.cuda.synchronize()
+            want = w8a8_fused_plain(x, wq, ws, s8)
+            d = (got.float() - want.float()).abs()
+            err, frac = d.max().item(), (d != 0).float().mean().item()
+            if s8:
+                ok = torch.equal(got, want)
+            else:
+                ok = err <= 2 ** -7 * want.float().abs().max().item() and frac <= 1e-3
+            log(f"[check] w8a8_fused {'s8' if s8 else 'bf16'} {tag} (M={x.shape[0] * L} "
+                f"K={K} N={N}): max|d|={err:.3e}, {frac:.2e} of outputs differ"
+                f"{', bit-equal required' if s8 else ''} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"w8a8_fused kernel disagrees: {tag} s8={s8}")
+            errs[("w8a8_fused", s8, tag)] = err
+        del x, wq, ws, got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_fp8(name):
+    """fp8 weights (e4m3 block weights, the head kept bf16, as the JAX
+    package's default) at VAR-d30 256px B=16 through generate_images: per
+    decode 300 attention and 10 sampler launches and no int8 kernel; the
+    latent beside the bf16 one, in turns in this call."""
+    var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    bf16 = init_var_params(var_cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+    fp8 = quantize_var_params(bf16, mode="fp8")
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(fp8))
+    log(f"[fp8] VAR-d{DEPTH} fp8 ({nbytes / 2 ** 30:.2f} GiB of parameters, "
+        f"head {fp8['head']['w'].dtype})")
+    labels = torch.arange(B) * 61 % 1000
+    generate_images(var_cfg, vae_cfg, fp8, vae, labels, 0, samp)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    img = generate_images(var_cfg, vae_cfg, fp8, vae, labels, 1, samp)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    S = len(PNS)
+    want = _want(attention=S * DEPTH, sampler=S)
+    log(f"[fp8] kernel launches over one fp8 generate_images: {launches}")
+    if launches != want:
+        raise AssertionError(f"fp8 path launch counts {launches} != {want}")
+    if img.shape != (B, 3, 256, 256) or not torch.isfinite(img).all() \
+            or img.min() < 0 or img.max() > 1:
+        raise AssertionError(f"[fp8] bad images {tuple(img.shape)}")
+    ms = {"bf16": [], "fp8": []}
+    for tag in ("bf16", "fp8") * 3:
+        p = bf16 if tag == "bf16" else fp8
+        torch.cuda.synchronize()
+        t0 = time.time()
+        decode_all_scales(var_cfg, vae_cfg, p, vae["quant"], labels, 20, samp)
+        torch.cuda.synchronize()
+        ms[tag].append((time.time() - t0) * 1e3)
+    log(f"[fp8] {name} B={B} latent decode, in turns: bf16 {min(ms['bf16']):.1f} "
+        f"ms (runs {', '.join(f'{t:.1f}' for t in ms['bf16'])}), fp8 "
+        f"{min(ms['fp8']):.1f} ms (runs {', '.join(f'{t:.1f}' for t in ms['fp8'])})")
+    del bf16, fp8, vae, img
+    torch.cuda.empty_cache()
+
+
+def phase_sample_fid(name):
+    """The FID sampler at VAR-d30 256px, bf16 weights: 32 class-balanced
+    samples in batches of B=16 with the golden f32 pixel decoder, packed
+    into an npz in a temporary directory, read back as uint8 (32, 256, 256,
+    3); per batch 300 attention and 10 sampler launches."""
+    var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    params = init_var_params(var_cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    labels = balanced_labels(2 * B)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "samples.npz")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.time()
+        batches = sample_batches(var_cfg, vae_cfg, params, vae, labels, B, samp,
+                                 log_every=1)
+        try:
+            create_npz_from_arrays(batches, out, num=len(labels))
+        finally:
+            batches.close()
+        wall = time.time() - t0
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        arr = np.load(out)["arr_0"]
+    S = len(PNS)
+    want = _want(attention=2 * S * DEPTH, sampler=2 * S)
+    log(f"[fid] {name}: {len(labels)} samples, B={B}, f32 pixels, into an npz "
+        f"in {wall:.3f} s: {len(labels) / wall:.2f} img/s end to end; npz "
+        f"{arr.dtype} {arr.shape}; launches {launches}")
+    if arr.shape != (2 * B, 256, 256, 3) or arr.dtype != np.uint8 or launches != want:
+        raise AssertionError(f"[fid] npz {arr.dtype} {arr.shape}, launches "
+                             f"{launches} (want {want})")
+    del params, vae
+    torch.cuda.empty_cache()
+
+
+def phase_benchmark_cli():
+    """The benchmark CLI through its main, as from the command line:
+    gamma mode (VAR-d16 -> VAR-d30, batch 8, one timed run per gamma) and
+    quant mode (w8, fp8, w8a8, w8a8 + INT8 KV against bf16, batch 8). Its
+    rows' keys are held against the JAX package's on the CPU."""
+    S = len(PNS)
+    _reset_counts()
+    rows = benchmark_cli.main(["--mode", "gamma", "--batch", "8", "--iters", "1"])
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    log(f"[cli] gamma launches {launches}")
+    if [r["gamma"] for r in rows] != [1, 2, 3] or launches["attention"] == 0 \
+            or any(r["accept_count"] != S or r["sec_per_batch"] <= 0 for r in rows):
+        raise AssertionError(f"[cli] gamma rows {rows}")
+    torch.cuda.empty_cache()
+    _reset_counts()
+    rows = benchmark_cli.main(["--mode", "quant", "--batch", "8"])
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    log(f"[cli] quant launches {launches}")
+    if [r["quant"] for r in rows] != ["w8", "fp8", "w8a8", "w8a8+int8kv"] or any(
+            not 0 <= r["token_agreement_vs_bf16"] <= 1
+            or not math.isfinite(r["latent_mse_vs_bf16"]) for r in rows) \
+            or 0 in (launches["int8_matmul"], launches["act_quantize"],
+                     launches["attention_int8"]):
+        raise AssertionError(f"[cli] quant rows {rows}, launches {launches}")
+    torch.cuda.empty_cache()
+
+
+def phase_bench_serving():
+    """tools/bench_serving's run at VAR-d30: 32 requests, bucket 16, W8A8 +
+    INT8 KV, uint8 delivery. Counts set to 0 before the run and read after:
+    two warm-up and two measured batches, each 300 INT8-KV attention, 1200
+    act_quantize, 10 int8 head matmul and 10 sampler launches."""
+    S = len(PNS)
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = bench_serving.run(DEPTH, 2 * SERVE_B, SERVE_B, "w8a8-int8kv-u8")
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    nb = 2 + out["batches"]
+    want = _want(attention_int8=nb * S * DEPTH, act_quantize=4 * nb * S * DEPTH,
+                 int8_matmul=nb * S, sampler=nb * S)
+    log(f"[bench_serving] {json.dumps(out)}; launches {launches}")
+    if launches != want or out["batches"] != 2:
+        raise AssertionError(f"[bench_serving] launches {launches} != {want}")
+    torch.cuda.empty_cache()
+
+
+def phase_bench():
+    """``python -m sdvar_tpu_torch.bench`` in a process of its own, as a
+    user runs it: it must exit 0 with exactly one JSON line on stdout,
+    holding the four keys."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "sdvar_tpu_torch.bench"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    for line in res.stderr.splitlines()[-12:]:
+        log(f"[bench] stderr: {line}")
+    lines = res.stdout.splitlines()
+    log(f"[bench] exit {res.returncode} in {time.time() - t0:.1f} s; stdout: {lines}")
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError("bench must exit 0 with one stdout line")
+    row = json.loads(lines[0])
+    if set(row) != {"metric", "value", "unit", "vs_baseline"} or row["value"] <= 0:
+        raise AssertionError(f"bench line {row}")
+
+
+def phase_microbench(errs):
+    """tools/microbench_int8_matmul's pass over its six shapes and six
+    modes, the fused kernel's path: counts set to 0 just before and read
+    just after (one warm-up and ITERS launches of each fused form at each
+    shape). Then row 10's line at fc1 s9 (M=8192, K=1920, N=7680): the pl_s8
+    time beside the plain version, the bound and two library figures,
+    torch._int_mm on pre-quantized operands (the product alone, the
+    microbenchmark's int8_int32) and the port's three-launch w8a8_matmul
+    (w8a8_s8); fc2 s9 and the bf16 form beside it. Also row 9 (not ported):
+    the bound of the x * 2.0 probe and the time of that PyTorch call."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    rows = microbench_int8_matmul.run()
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    n = len(rows) * 2 * (microbench_int8_matmul.ITERS + 1)
+    log(f"[micro] launches over the pass: {launches}")
+    if launches["w8a8_fused"] != n:
+        raise AssertionError(f"[micro] w8a8_fused launched "
+                             f"{launches['w8a8_fused']} times, want {n}")
+    by = {r["shape"]: r for r in rows}
+    line = {}
+    for tag in ("fc1 s9", "fc2 s9"):
+        r = by[tag]
+        M, K, N = microbench_int8_matmul.B * r["L"], r["K"], r["N"]
+        x, wq, ws, _ = microbench_int8_matmul.operands(r["L"], K, N, DEV)
+        p_ms = cuda_ms(lambda: w8a8_fused_plain(x, wq, ws, True), 3, warmup=1)
+        bound, bound_by = w8a8_fused_bound(M, K, N, True)
+        b_bound, _ = w8a8_fused_bound(M, K, N, False)
+        line[tag] = {"ms": r["pl_s8"]["ms"], "plain_ms": p_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": r["int8_int32"]["ms"],
+                     "library_ms_w8a8_matmul": r["w8a8_s8"]["ms"],
+                     "bf16_form_ms": r["pl_bf16"]["ms"], "bf16_form_bound_ms": b_bound,
+                     "bf16_ms": r["bf16"]["ms"], "convert_ms": r["w8a8"]["ms"]}
+        log(f"[time] w8a8_fused {tag} (M={M} K={K} N={N}): kernel_ms "
+            f"{r['pl_s8']['ms']:.4f} plain_ms {p_ms:.4f} library_ms "
+            f"{r['int8_int32']['ms']:.4f} (torch._int_mm, pre-quantized "
+            f"operands) and {r['w8a8_s8']['ms']:.4f} (w8a8_matmul, three "
+            f"launches) bound_ms {bound:.4f} ({bound_by}); bf16 form "
+            f"{r['pl_bf16']['ms']:.4f} (bound {b_bound:.4f}); bf16 matmul "
+            f"{r['bf16']['ms']:.4f}")
+        del x, wq, ws
+    probe = torch.randn(8, 512, device=DEV)
+    p9 = cuda_ms(lambda: probe * 2.0, 200)
+    b9 = 2 * probe.numel() * 4 / HBM_BPS * 1e3
+    log(f"[time] row 9 probe (tests/test_tp_pallas.py:194, not ported): x * 2.0 "
+        f"on (8, 512) f32, library_ms {p9:.4f}, bound_ms {b9:.6f} (bytes: "
+        f"16 KiB read, 16 KiB written)")
+    torch.cuda.empty_cache()
+    fc1 = line.pop("fc1 s9")
+    return {"name": "w8a8_fused", "route": "cuda",
+            "source": "sdvar_tpu_torch/csrc/w8a8_fused.cu",
+            "replaces": "tools/microbench_int8_matmul.py:42",
+            "launches": launches["w8a8_fused"],
+            "max_abs_err": errs[("w8a8_fused", True, "fc1 s9")],
+            **fc1, "fc2_s9": line["fc2 s9"],
+            "row9_probe": {"library_ms": p9, "bound_ms": b9}}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1582,6 +1859,7 @@ def main() -> int:
         errs, smp = phase_kernel_checks()
         errs.update(phase_quant_kernel_checks())
         errs.update(phase_cache_kernel_checks())
+        errs.update(phase_fused_checks())
     errs.update(phase_conv_checks())
     launches = phase_main_path(name)
     launches.update(phase_quant_path(name))
@@ -1591,6 +1869,12 @@ def main() -> int:
     conv_launches, per_decode = phase_serving(name)
     phase_small_reference()
     phase_small_reference_quant()
+    phase_fp8(name)
+    phase_small_reference(quant="fp8")
+    phase_sample_fid(name)
+    phase_benchmark_cli()
+    phase_bench_serving()
+    phase_bench()
     with full_f32():
         kernels = phase_kernel_times(launches, errs, smp)
     kernels.append(phase_conv_times(conv_launches, per_decode, errs))
@@ -1598,6 +1882,7 @@ def main() -> int:
         kernels += phase_cache_kernel_times(
             spec_launches["cache_write"],
             switched["w8a8"]["cache_write_int8"], errs)
+    kernels.append(phase_microbench(errs))
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

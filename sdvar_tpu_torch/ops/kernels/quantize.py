@@ -49,7 +49,12 @@ def act_quantize_plain(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
         h = 0.5 * h * (1.0 + torch.tanh(0.7978845608028654
                                         * (h + 0.044715 * h * h * h)))
     amax = h.abs().amax(dim=-1, keepdim=True)
-    s = torch.clamp(amax / 127.0, min=1e-8)
+    # divided by a tensor on amax's device, not a Python number: on a CUDA
+    # tensor PyTorch turns division by a host number into a product with
+    # its reciprocal, whose last bit can differ from the IEEE quotient the
+    # kernels take, and an element of exactly amax / 2 (a rounding tie of
+    # x / s) then rounds the other way
+    s = torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
     return torch.round(h / s).to(torch.int8), s
 
 

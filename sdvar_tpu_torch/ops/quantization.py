@@ -1,5 +1,5 @@
-"""INT8 weights (weight-only "w8" and W8A8) and the INT8 KV cache (the
-counterpart of ``sdvar_tpu/ops/quantization.py``).
+"""INT8 weights (weight-only "w8" and W8A8), float8 e4m3 weights ("fp8")
+and the INT8 KV cache (the counterpart of ``sdvar_tpu/ops/quantization.py``).
 
 Scheme, as in the JAX package:
   - weights: symmetric per-output-channel int8, w ~ q * s with q int8
@@ -8,6 +8,10 @@ Scheme, as in the JAX package:
     by the int8 weights (``int8_matmul``, the CUDA kernel on the card);
     ``W8A8Linear`` leaves also quantize the activation per token and run an
     exact s8 x s8 -> s32 product.
+  - fp8: symmetric per-output-channel float8_e4m3fn, amax mapped to
+    ``FP8_MAX`` (``FP8Linear``); its matmuls dequantize the weight to the
+    compute dtype and run ``torch.matmul``, as the JAX package's einsum
+    does (no Pallas kernel sits behind it there).
   - KV cache: symmetric per-token int8 (amax over the whole merged C of a
     written token), dequantized inside the attention kernel.
 
@@ -30,7 +34,6 @@ integer arithmetic as well. Integer accumulation is exact, so the port is
 at least as tight as JAX's ``w8a8_matmul``, which accumulates int8-as-bf16
 in f32 and rounds once K * 127^2 > 2^24.
 
-``mode="fp8"`` (``FP8Linear``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -65,7 +68,18 @@ class W8A8Linear(NamedTuple):
     scale: torch.Tensor
 
 
-QUANTIZED = (QuantizedLinear, W8A8Linear)
+class FP8Linear(NamedTuple):
+    """float8_e4m3fn weight (in, out) or (depth, in, out) and f32 scale
+    (out,) or (depth, out); matmuls run in the activation's dtype on the
+    dequantized weight."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+FP8_MAX = 448.0  # the largest finite e4m3 value
+
+QUANTIZED = (QuantizedLinear, W8A8Linear, FP8Linear)
 
 WEIGHT_KEYS = ("qkv_w", "proj_w", "fc1_w", "fc2_w", "ada_lin_w")
 # weights whose matmuls take the W8A8 path in "w8a8" mode: ada_lin_w (tiny,
@@ -81,6 +95,17 @@ def quantize_weight(w: torch.Tensor, axis: int = -2) -> QuantizedLinear:
     scale = (amax / 127.0).float()
     q = torch.clamp(torch.round(w / torch.clamp(scale, min=1e-12)), -127, 127)
     return QuantizedLinear(q.to(torch.int8), scale.squeeze(axis))
+
+
+def quantize_weight_fp8(w: torch.Tensor, axis: int = -2) -> FP8Linear:
+    """Symmetric per-output-channel e4m3: amax over the INPUT axis maps to
+    ``FP8_MAX``, round to nearest even. The scale is computed in the
+    weight's dtype (a bf16 division for a bf16 weight), then widened to
+    f32, and the division by it promotes to f32, as in the JAX package."""
+    amax = w.abs().amax(dim=axis, keepdim=True)
+    scale = (amax / FP8_MAX).float()
+    q = (w / torch.clamp(scale, min=1e-12)).to(torch.float8_e4m3fn)
+    return FP8Linear(q, scale.squeeze(axis))
 
 
 def k_major(q: torch.Tensor) -> torch.Tensor:
@@ -99,28 +124,32 @@ def dequantize_weight(qw, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def quantize_var_params(params: Dict, keys: Tuple[str, ...] = WEIGHT_KEYS,
-                        quantize_head: bool = True,
+                        quantize_head: Optional[bool] = None,
                         mode: str = "w8", act_head: bool = False) -> Dict:
-    """A parameter tree whose big block matmul weights (and the head, by
-    default) are int8 leaves; embeddings and norm-side parameters stay as
-    they are. ``mode``: "w8" (``QuantizedLinear``, activations stay bf16) or
-    "w8a8" (``W8A8Linear`` for ``W8A8_KEYS``, and for the head when
-    ``act_head``)."""
-    if mode == "fp8":
-        raise NotImplementedError("mode='fp8' (FP8Linear) is not ported")
-    if mode not in ("w8", "w8a8"):
-        raise ValueError(f"unknown mode {mode!r} (w8 | w8a8)")
+    """A parameter tree whose big block matmul weights (and the head, per
+    ``quantize_head``) are quantized leaves; embeddings and norm-side
+    parameters stay as they are. ``mode``: "w8" (``QuantizedLinear``,
+    activations stay bf16), "w8a8" (``W8A8Linear`` for ``W8A8_KEYS``, and
+    for the head when ``act_head``) or "fp8" (``FP8Linear``).
+    ``quantize_head`` None means per mode, as in the JAX package: the int8
+    modes quantize the head, fp8 keeps it as it is (e4m3's 3-bit mantissa
+    right before sampling flips argmaxes)."""
+    if mode not in ("w8", "w8a8", "fp8"):
+        raise ValueError(f"unknown mode {mode!r} (w8 | w8a8 | fp8)")
+    if quantize_head is None:
+        quantize_head = mode != "fp8"
+    qfn = quantize_weight_fp8 if mode == "fp8" else quantize_weight
     out = dict(params)
     blocks = dict(params["blocks"])
     for k in keys:
         if k in blocks:
-            qw = quantize_weight(blocks[k], axis=-2)
+            qw = qfn(blocks[k], axis=-2)
             if mode == "w8a8" and k in W8A8_KEYS:
                 qw = as_w8a8(*qw)
             blocks[k] = qw
     out["blocks"] = blocks
     if quantize_head:
-        hw = quantize_weight(params["head"]["w"], axis=-2)
+        hw = qfn(params["head"]["w"], axis=-2)
         if mode == "w8a8" and act_head:
             hw = as_w8a8(*hw)
         out["head"] = {"w": hw, "b": params["head"]["b"]}
@@ -189,13 +218,14 @@ def w8a8_matmul(x_blc: torch.Tensor, qw: W8A8Linear, dtype) -> torch.Tensor:
 def linear_blc(x_blc: torch.Tensor, w, dtype) -> torch.Tensor:
     """(..., K) @ w -> (..., N) in ``dtype``: ``W8A8Linear`` through the
     quantized-activation product, ``QuantizedLinear`` through the
-    INT8-weight matmul, a plain weight through ``torch.matmul`` (bf16
-    products accumulate in f32)."""
+    INT8-weight matmul, an ``FP8Linear`` dequantized to ``dtype`` and a
+    plain weight through ``torch.matmul`` (bf16 products accumulate in
+    f32)."""
     if isinstance(w, W8A8Linear):
         return w8a8_matmul(x_blc, w, dtype)
     if isinstance(w, QuantizedLinear):
         return int8_matmul_blc(x_blc.to(dtype), w.q, w.scale)
-    return torch.matmul(x_blc.to(dtype), w.to(dtype))
+    return torch.matmul(x_blc.to(dtype), resolve_weight(w, dtype))
 
 
 # ---------------------------------------------------------------------------

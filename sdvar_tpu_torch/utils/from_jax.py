@@ -5,8 +5,8 @@ per-layer tensors stacked on ``depth``, linear weights (in, out), conv
 kernels OIHW), so the bridge is a structural copy that checks the tree and
 moves every leaf to a tensor on the target device. It never imports JAX:
 callers pass the tree as numpy arrays (``jax.tree.map(np.asarray, p)``).
-bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are carried over bit for
-bit. Quantized leaves of ``quantize_var_params`` reach the bridge as the
+bfloat16 and float8_e4m3fn leaves (numpy's ``ml_dtypes`` types) are carried
+over bit for bit, through their raw bytes. Quantized leaves of ``quantize_var_params`` reach the bridge as the
 JAX package's NamedTuples of numpy arrays (``jax.tree.map`` keeps the
 type); they are recognised by class name and fields, without importing the
 JAX package, and become the port's class of the same meaning. Any other
@@ -19,19 +19,28 @@ import numpy as np
 import torch
 
 from sdvar_tpu_torch.ops.conv_s8 import SITE_KEYS, site_from_arrays
-from sdvar_tpu_torch.ops.quantization import QuantizedLinear, W8A8Linear, as_w8a8
+from sdvar_tpu_torch.ops.quantization import (
+    FP8Linear,
+    QuantizedLinear,
+    W8A8Linear,
+    as_w8a8,
+)
 from sdvar_tpu_torch.utils.device import resolve_device
 
 _VAR_KEYS = ("word_embed", "class_emb", "pos_start", "pos_1LC", "lvl_embed",
              "blocks", "head_nm", "head")
 _VQVAE_KEYS = ("encoder", "decoder", "quant_conv", "post_quant_conv", "quant")
-_QUANTIZED = {cls.__name__: cls for cls in (QuantizedLinear, W8A8Linear)}
+_QUANTIZED = {cls.__name__: cls for cls in (QuantizedLinear, W8A8Linear, FP8Linear)}
+# ml_dtypes types numpy knows only by name: (raw-byte view, torch dtype)
+_RAW = {"bfloat16": (np.uint16, torch.bfloat16),
+        "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
 
 
 def _to_tensor(a, device: torch.device) -> torch.Tensor:
     a = np.array(a)  # a writable copy: JAX hands out read-only buffers
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    raw = _RAW.get(a.dtype.name)
+    if raw is not None:
+        return torch.from_numpy(a.view(raw[0])).view(raw[1]).to(device)
     return torch.from_numpy(a).to(device)
 
 
@@ -47,8 +56,9 @@ def _convert(tree, device: torch.device):
             raise TypeError(f"weight bridge: cannot carry a {name} leaf "
                             f"(known quantized leaves: {sorted(_QUANTIZED)})")
         q, scale = (_to_tensor(a, device) for a in tree)
-        if q.dtype != torch.int8:
-            raise TypeError(f"weight bridge: {name}.q is {q.dtype}, not int8")
+        want = torch.float8_e4m3fn if cls is FP8Linear else torch.int8
+        if q.dtype != want:
+            raise TypeError(f"weight bridge: {name}.q is {q.dtype}, not {want}")
         return as_w8a8(q, scale) if cls is W8A8Linear else cls(q, scale)
     return _to_tensor(tree, device)
 

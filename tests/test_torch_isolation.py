@@ -43,6 +43,11 @@ def test_import_leaves_jax_out():
         "import sdvar_tpu_torch.engine.serving, sdvar_tpu_torch.ops.conv_s8;"
         "import sdvar_tpu_torch.engine.speculative, sdvar_tpu_torch.engine.probes;"
         "import sdvar_tpu_torch.ops.masks;"
+        "import sdvar_tpu_torch.bench, sdvar_tpu_torch.benchmark_cli;"
+        "import sdvar_tpu_torch.sample_fid, sdvar_tpu_torch.utils.fid;"
+        "import sdvar_tpu_torch.utils.torch_port, sdvar_tpu_torch.ops.kernels.w8a8_fused;"
+        "import sdvar_tpu_torch.tools.bench_serving;"
+        "import sdvar_tpu_torch.tools.microbench_int8_matmul;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sdvar_tpu')];"
         "assert not bad, bad"
@@ -111,3 +116,31 @@ def test_speculative_engine_raises_without_a_card(monkeypatch):
                             device="cpu")
     f_hat, stats = eng.generate_speculative([0], 0)
     assert f_hat.shape == (1, 8, 2, 2) and stats.accept_count == 2
+
+
+def test_measuring_entry_points_raise_without_a_card(monkeypatch):
+    """The bench, the FID sampler, the benchmark CLI's engine, the serving
+    bench and the microbenchmark ask for the card by default and raise
+    without one; none of them drops to the CPU on its own."""
+    import numpy as np
+
+    from sdvar_tpu_torch import bench, benchmark_cli, sample_fid
+    from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
+    from sdvar_tpu_torch.tools import bench_serving, microbench_int8_matmul
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = VARConfig(depth=1, patch_nums=(1, 2), vocab_size=64, Cvae=8,
+                    head_dim=32)
+    vae_cfg = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=(1, 2))
+    calls = [
+        lambda: bench.bench_decode(1, 1),
+        lambda: next(sample_fid.sample_batches(cfg, vae_cfg, {}, {}, np.zeros(1),
+                                               1, SamplingConfig())),
+        lambda: benchmark_cli.build_engine(benchmark_cli.parse_args(
+            ["--depth-draft", "1", "--depth-target", "1"])),
+        lambda: bench_serving.run(1, 1, 1, "bf16"),
+        lambda: microbench_int8_matmul.run(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

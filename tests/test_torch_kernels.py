@@ -23,7 +23,8 @@ from sdvar_tpu_torch.ops.kernels.conv_s8 import conv3x3_s8_kernel, conv3x3_s8_pl
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import int8_matmul_kernel, int8_matmul_plain
 from sdvar_tpu_torch.ops.kernels.quantize import act_quantize_kernel, act_quantize_plain
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
-from sdvar_tpu_torch.ops.quantization import quantize_tokens
+from sdvar_tpu_torch.ops.kernels.w8a8_fused import w8a8_fused_kernel, w8a8_fused_plain
+from sdvar_tpu_torch.ops.quantization import k_major, quantize_tokens
 
 pytestmark = pytest.mark.gpu
 
@@ -363,3 +364,39 @@ def test_cache_kernels_refuse_what_they_do_not_take(cuda):
                                None, 1.0)
     with pytest.raises(ValueError, match="layer"):
         attention_cache_kernel(q, ck, ck.clone(), 2, 8, None, 1.0)
+
+
+@pytest.mark.parametrize("s8", [True, False])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(8, 64, 64), (100, 1920, 200),
+                                   (200, 7680, 136), (64, 96, 520)])
+def test_w8a8_fused_kernel_matches_plain(cuda, s8, x_dtype, M, K, N):
+    """Ragged M and N against the 64 x 128 tiles, one and many K steps, an
+    all-zero row: the s8 form gives the plain version's bits; the bf16
+    form's f32 sum is exact below 2^24 (these sums stay below it), so it
+    does too."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = (torch.randn(M, K, device=cuda, generator=g) * 3).to(x_dtype)
+    x[M // 2] = 0
+    q = k_major(torch.randint(-127, 128, (K, N), device=cuda, generator=g,
+                              dtype=torch.int8))
+    s = torch.rand(N, device=cuda, generator=g) * 1e-2
+    n0 = w8a8_fused_kernel.launches
+    got = w8a8_fused_kernel(x, q, s, s8)
+    torch.cuda.synchronize()
+    assert w8a8_fused_kernel.launches == n0 + 1
+    want = w8a8_fused_plain(x, q, s, s8)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+def test_w8a8_fused_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(16, 64, device=cuda)
+    q = torch.zeros(64, 64, dtype=torch.int8, device=cuda)
+    s = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="K-major"):
+        w8a8_fused_kernel(x, q, s)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        w8a8_fused_kernel(x[:, 1:49], k_major(q[:48]), s, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        w8a8_fused_kernel(x.cpu(), k_major(q), s)

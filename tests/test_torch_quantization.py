@@ -84,8 +84,11 @@ def test_quantize_var_params_leaves(mode):
                                 mode=mode, act_head=True)
     assert type(act["head"]["w"]) is (Q.W8A8Linear if mode == "w8a8"
                                       else Q.QuantizedLinear)
-    with pytest.raises(NotImplementedError):
-        Q.quantize_var_params(tq, mode="fp8")
+    fp8 = Q.quantize_var_params(var_params_from_jax(p_np, device="cpu"),
+                                mode="fp8")
+    assert all(type(fp8["blocks"][k]) is Q.FP8Linear for k in Q.WEIGHT_KEYS)
+    with pytest.raises(ValueError, match="unknown mode"):
+        Q.quantize_var_params(tq, mode="int4")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -196,8 +199,8 @@ def test_int8_matmul_plain_matches_pallas(x_dtype, M, K, N):
 
 def test_bridge_carries_quantized_tree():
     """A JAX w8a8 tree crosses with its classes kept and its int8 bytes and
-    scales equal; a tuple the bridge does not know (here the JAX package's
-    FP8Linear, and a bare tuple) raises."""
+    scales equal; so does the JAX package's FP8Linear (its e4m3 bytes); a
+    tuple the bridge does not know (a bare tuple) raises."""
     jcfg = JVARConfig(**CFG_KW)
     p = JM.init_var_params(jcfg, jax.random.PRNGKey(1))
     jq = jax.tree.map(np.asarray, JQ.quantize_var_params(p, mode="w8a8"))
@@ -212,8 +215,10 @@ def test_bridge_carries_quantized_tree():
         np.testing.assert_array_equal(leaf.scale.numpy(), jleaf.scale)
     assert type(tq["head"]["w"]) is Q.QuantizedLinear
     fp8 = jax.tree.map(np.asarray, JQ.quantize_var_params(p, mode="fp8"))
-    with pytest.raises(TypeError, match="FP8Linear"):
-        var_params_from_jax(fp8, device="cpu")
+    leaf = var_params_from_jax(fp8, device="cpu")["blocks"]["fc1_w"]
+    assert type(leaf) is Q.FP8Linear and leaf.q.dtype == torch.float8_e4m3fn
+    np.testing.assert_array_equal(leaf.q.view(torch.uint8).numpy(),
+                                  fp8["blocks"]["fc1_w"].q.view(np.uint8))
     bad = dict(jq, head={"w": (jq["head"]["w"].q, jq["head"]["w"].scale),
                          "b": jq["head"]["b"]})
     with pytest.raises(TypeError, match="tuple"):
