@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from sdvar_tpu_torch.config import (
+    MeshConfig,
     SamplingConfig,
     SpeculativeConfig,
     VARConfig,
@@ -57,7 +58,12 @@ from sdvar_tpu_torch import benchmark_cli
 from sdvar_tpu_torch.engine.decode import decode_all_scales, generate_images
 from sdvar_tpu_torch.engine.serving import GenerationServer
 from sdvar_tpu_torch.engine.speculative import SpeculativeEngine
-from sdvar_tpu_torch.models.var import apply_transformer, get_logits, init_var_params
+from sdvar_tpu_torch.models.var import (
+    apply_transformer,
+    get_logits,
+    init_var_params,
+    precompute_modulations,
+)
 from sdvar_tpu_torch.models.vqvae import (
     calibrate_decoder_w8a8,
     fhat_to_img,
@@ -85,8 +91,22 @@ from sdvar_tpu_torch.ops.kernels.matmul_int8 import (
 from sdvar_tpu_torch.ops.kernels.quantize import (
     act_quantize_kernel,
     act_quantize_plain,
+    act_scale_kernel,
+    act_scale_plain,
 )
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
+from sdvar_tpu_torch.ops.kernels.scale_probe import (
+    scale_probe_kernel,
+    scale_probe_plain,
+)
+from sdvar_tpu_torch.ops import conv_s8 as conv_s8_ops
+from sdvar_tpu_torch.ops.partition import (
+    data_rows,
+    gather_data,
+    gather_model,
+    set_tp_mesh,
+    sharded_scale_probe,
+)
 from sdvar_tpu_torch.ops.kernels.w8a8_fused import (
     w8a8_fused_kernel,
     w8a8_fused_plain,
@@ -98,9 +118,17 @@ from sdvar_tpu_torch.ops.quantization import (
     quantize_tokens,
     quantize_var_params,
     quantize_weight,
+    quantize_weight_fp8,
 )
+from sdvar_tpu_torch.parallel import distributed as DIST
+from sdvar_tpu_torch.parallel.launch import launch
+from sdvar_tpu_torch.parallel.mesh import create_mesh, shard_tree, var_param_specs
 from sdvar_tpu_torch.sample_fid import balanced_labels, sample_batches
-from sdvar_tpu_torch.tools import bench_serving, microbench_int8_matmul
+from sdvar_tpu_torch.tools import (
+    bench_serving,
+    microbench_int8_matmul,
+    probe_mesh_placement,
+)
 from sdvar_tpu_torch.utils.device import full_f32
 from sdvar_tpu_torch.utils.fid import create_npz_from_arrays
 
@@ -121,6 +149,9 @@ N_BATCHES = 3
 DEPTH = 30
 DEV = "cuda"
 PNS = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)
+# (rows, heads) of one rank's attention in the d30 mesh decodes: 1x2 holds
+# 15 heads of the 2B CFG rows, 2x1 all 30 heads of its B rows
+MESH_RANK_ATT = {"1x2": (2 * B, DEPTH // 2), "2x1": (B, DEPTH)}
 
 
 def log(*a):
@@ -287,6 +318,27 @@ def phase_kernel_checks():
             if not ok:
                 raise AssertionError(f"attention kernel disagrees at {Lq}x{Lk}")
             errs[(dtype, Lq, Lk)] = err
+    for tag, (Bm, Hm) in MESH_RANK_ATT.items():  # scale 9, bf16, per rank
+        Lq, Lk = 256, 680
+        cache = torch.randn(2, Bm, Lmax, Hm * hd, device=dev,
+                            generator=g).to(torch.bfloat16)
+        q = torch.nn.functional.normalize(torch.randn(
+            Bm, Lq, Hm, hd, device=dev, generator=g), dim=-1).mul_(4.0)
+        q = q.to(torch.bfloat16)
+        k = cache[0, :, :Lk].view(Bm, Lk, Hm, hd)
+        k.copy_(torch.nn.functional.normalize(k.float(), dim=-1))
+        v = cache[1, :, :Lk].view(Bm, Lk, Hm, hd)
+        got = attention_kernel(q, k, v, None, 1.0).float()
+        torch.cuda.synchronize()
+        want = attention_plain(q.float(), k.float(), v.float(), None, 1.0)
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=2e-2, atol=2e-2)
+        log(f"[check] attention bfloat16 mesh {tag} rank shape ({Bm} rows, "
+            f"{Hm} heads) Lq={Lq} Lk={Lk}: max|d|={err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"attention kernel disagrees at the {tag} "
+                                 f"rank shape")
     # additive bias with -inf entries and one fully masked row, f32
     Lq, Lk = 100, 255
     q = torch.randn(Bq, Lq, H, hd, device=dev, generator=g) * 0.2
@@ -355,13 +407,15 @@ def _int8_kv(vals, scales, Lk, H, hd):
 
 def phase_quant_kernel_checks():
     """The three kernels of the quantized path against their plain versions
-    at main-path shapes. Tolerances: INT8-KV attention f32 1e-4 and bf16
+    at main-path shapes, the d30 mesh ranks' included (attention on 15
+    heads and on 16 rows, the act-quant's split-row modes, the head's
+    2048-column half). Tolerances: INT8-KV attention f32 1e-4 and bf16
     2e-2 of the output's size (bf16: p * vs and o round once each); act
     quantization scales 1e-6 relative and |dq| <= 1 on fewer than 1e-3 of
-    the elements (libdevice tanh against PyTorch's); INT8-weight matmul f32
-    1e-5 of the output's size (the f32 sum's order), bf16 2^-7 (one
-    rounding of the output is up to 2^-8 of the largest one's binade, plus
-    the sum's order)."""
+    the elements with GELU (libdevice tanh against PyTorch's), the plain
+    version's bits without; INT8-weight matmul f32 1e-5 of the output's
+    size (the f32 sum's order), bf16 2^-7 (one rounding of the output is up
+    to 2^-8 of the largest one's binade, plus the sum's order)."""
     g = torch.Generator(device=DEV).manual_seed(2)
     Bq, H, hd, Lmax = 2 * B, DEPTH, 64, 680
     errs = {}
@@ -381,6 +435,25 @@ def phase_quant_kernel_checks():
             if not ok:
                 raise AssertionError(f"INT8-KV attention disagrees at {Lq}x{Lk}")
             errs[("attention_int8", dtype, Lq, Lk)] = err
+    for tag, (Bm, Hm) in MESH_RANK_ATT.items():  # scale 9, bf16, per rank
+        Lq, Lk = 256, 680
+        mvals, mscales = _int8_cache(Bm, Lmax, Hm * hd, g)
+        q = (torch.randn(Bm, Lq, Hm, hd, device=DEV, generator=g)
+             * 1e-3).to(torch.bfloat16)
+        k, v, kv_scales = _int8_kv(mvals, mscales, Lk, Hm, hd)
+        got = attention_kernel(q, k, v, None, 1.0, kv_scales=kv_scales).float()
+        torch.cuda.synchronize()
+        want = attention_plain(q, k, v, None, 1.0, kv_scales=kv_scales).float()
+        err = (got - want).abs().max().item()
+        lim = 2e-2 * want.abs().max().item()
+        ok = err <= lim
+        log(f"[check] attention_int8 bfloat16 mesh {tag} rank shape ({Bm} "
+            f"rows, {Hm} heads) Lq={Lq} Lk={Lk}: max|d|={err:.3e} (limit "
+            f"{lim:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"INT8-KV attention disagrees at the {tag} "
+                                 f"rank shape")
+        del mvals, mscales
     # additive bias with -inf entries and one fully masked row, f32
     Lq, Lk = 100, 255
     q = torch.randn(Bq, Lq, H, hd, device=DEV, generator=g) * 1e-3
@@ -417,7 +490,43 @@ def phase_quant_kernel_checks():
             raise AssertionError(f"act_quantize kernel disagrees at K={K}")
         errs[("act_quantize", K)] = float(d.max().item())
 
-    for x_dtype, N in ((torch.bfloat16, 7680), (torch.float32, 4096)):
+    # a row split over the 1x2 mesh's two ranks: proj's input (K=960 a
+    # rank, no GELU) and fc2's (K=3840, bf16 bias + GELU); this rank's half
+    # of each row, the scales alone, then the values under the whole row's
+    # scale (the max of both halves' scales, at least this half's own)
+    for K, gelu in ((960, False), (3840, True)):
+        xw = (torch.randn(M, 2 * K, device=DEV, generator=g) * 3).to(torch.bfloat16)
+        bw = (torch.randn(2 * K, device=DEV, generator=g).to(torch.bfloat16)
+              if gelu else None)
+        x, bias = xw[:, :K].contiguous(), (bw[:K] if gelu else None)
+        s8 = act_scale_kernel(x, bias, gelu)
+        torch.cuda.synchronize()
+        sp = act_scale_plain(x, bias, gelu)
+        whole = torch.maximum(sp, act_scale_plain(
+            xw[:, K:], bw[K:] if gelu else None, gelu))
+        q8, s_out = act_quantize_kernel(x, bias, gelu, scale=whole)
+        torch.cuda.synchronize()
+        qp, _ = act_quantize_plain(x, bias, gelu, scale=whole)
+        s_rel = ((s8 - sp).abs() / sp).max().item()
+        d = (q8.int() - qp.int()).abs()
+        frac = (d != 0).float().mean().item()
+        if gelu:  # libdevice tanh against PyTorch's, as above
+            ok = s_rel <= 1e-6 and d.max().item() <= 1 and frac < 1e-3
+        else:
+            ok = torch.equal(s8, sp) and d.max().item() == 0
+        ok = ok and torch.equal(s_out.view(-1), whole.view(-1))
+        log(f"[check] act_quantize split row M={M} K={K} gelu={gelu}: "
+            f"scale-only pass max rel {s_rel:.3e}, given-scale pass dq != 0 "
+            f"on {frac:.2e} of elements (max |dq| {d.max().item()}; "
+            f"{'limit |dq| <= 1 on < 1e-3' if gelu else 'bits required'}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"act_quantize split-row modes disagree at "
+                                 f"K={K}")
+        errs[("act_quantize split", K)] = float(d.max().item())
+
+    for x_dtype, N in ((torch.bfloat16, 7680), (torch.float32, 4096),
+                       (torch.float32, 2048)):  # the 1x2 rank's vocab half
         K = 1920
         x = torch.randn(M, K, device=DEV, generator=g).to(x_dtype)
         qw = quantize_weight(torch.randn(K, N, device=DEV, generator=g) * 0.02)
@@ -431,7 +540,7 @@ def phase_quant_kernel_checks():
             f"max|d|={err:.3e} (limit {lim:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"int8_matmul kernel disagrees for {x_dtype}")
-        errs[("int8_matmul", x_dtype)] = err
+        errs[("int8_matmul", x_dtype, N)] = err
     return errs
 
 
@@ -477,7 +586,7 @@ def _reset_counts():
     attention_cache_write_kernel.launches = 0
     attention_cache_write_kernel.launches_int8 = 0
     attention_cache_kernel.launches = 0
-    w8a8_fused_kernel.launches = 0
+    w8a8_fused_kernel.launches = scale_probe_kernel.launches = 0
 
 
 def _read_counts():
@@ -490,7 +599,8 @@ def _read_counts():
             "cache_write": attention_cache_write_kernel.launches,
             "cache_write_int8": attention_cache_write_kernel.launches_int8,
             "attention_cache": attention_cache_kernel.launches,
-            "w8a8_fused": w8a8_fused_kernel.launches}
+            "w8a8_fused": w8a8_fused_kernel.launches,
+            "scale_probe": scale_probe_kernel.launches}
 
 
 def _want(**counts):
@@ -902,23 +1012,48 @@ def phase_conv_times(launches, per_decode, errs):
             "launches_per_pixel_decode": per_decode}
 
 
+SMALL_PNS = (1, 2, 3)
+
+
+def _small_stack(quant=None):
+    """The small stack of the card-vs-CPU checks on the CPU (depth 2,
+    patch_nums (1, 2, 3)): head redrawn at 0.05 and AdaLN biases drawn at
+    0.3, both from seeded generators, so the blocks take part (the
+    initialiser's AdaLN gammas of about 1e-5 would let every residual
+    branch enter h at 1e-5 of its size); with ``quantize_var_params(mode=
+    quant)``'s weights when ``quant``. Returns (vc, qc, params, vqvae)."""
+    vc = VARConfig(depth=2, num_classes=10, patch_nums=SMALL_PNS,
+                   vocab_size=64, Cvae=8, head_dim=32)
+    qc = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=SMALL_PNS)
+    p = init_var_params(vc, seed=3, device="cpu")
+    p["head"]["w"].normal_(0, 0.05, generator=torch.Generator().manual_seed(4))
+    p["blocks"]["ada_lin_b"].normal_(0, 0.3,
+                                     generator=torch.Generator().manual_seed(6))
+    q = init_vqvae_params(qc, seed=4, device="cpu", eini=1.0)
+    if quant:
+        p = quantize_var_params(p, mode=quant)
+    return vc, qc, p, q
+
+
+def _max_gamma(vc, p, labels, dev="cpu") -> float:
+    """The largest |gamma| (AdaLN's residual gates) the stack runs with on
+    these labels' CFG rows."""
+    lab = torch.tensor(list(labels) + [vc.num_classes] * len(labels),
+                       device=dev)
+    p = _to(p, dev)
+    mods = precompute_modulations(vc, p, p["class_emb"][lab].float())
+    return mods[:, :, :2].abs().max().item()
+
+
 def phase_small_reference(quant=None):
-    """The whole CUDA path against the CPU plain path on a small stack
-    (depth 2, patch_nums (1, 2, 3)), greedy and f32, with plain weights or
-    ``quantize_var_params(mode=quant)``'s: equal ids, close images."""
-    pns = (1, 2, 3)
-    vc = VARConfig(depth=2, num_classes=10, patch_nums=pns, vocab_size=64,
-                   Cvae=8, head_dim=32)
-    qc = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=pns)
+    """The whole CUDA path against the CPU plain path on the small stack,
+    greedy and f32, with plain weights or ``quantize_var_params(mode=
+    quant)``'s: equal ids, close images."""
     samp = SamplingConfig(cfg=1.5, top_k=1)
     out = {}
+    vc, qc, p0, q0 = _small_stack(quant)
     for dev in ("cpu", "cuda"):
-        p = init_var_params(vc, seed=3, device="cpu")
-        p["head"]["w"].normal_(0, 0.05, generator=torch.Generator().manual_seed(4))
-        q = init_vqvae_params(qc, seed=4, device="cpu", eini=1.0)
-        if quant:
-            p = quantize_var_params(p, mode=quant)
-        p, q = _to(p, dev), _to(q, dev)
+        p, q = _to(p0, dev), _to(q0, dev)
         f_hat, ids = decode_all_scales(vc, qc, p, q["quant"], [3, 7], 0, samp,
                                        torch.float32, return_ids=True,
                                        device=dev)
@@ -926,11 +1061,35 @@ def phase_small_reference(quant=None):
             out[dev] = (ids.cpu(), fhat_to_img(qc, q, f_hat).cpu())
     same_ids = torch.equal(out["cpu"][0], out["cuda"][0])
     err = (out["cpu"][1] - out["cuda"][1]).abs().max().item()
-    log(f"[reference] small stack{f' ({quant})' if quant else ''}, card vs "
-        f"CPU plain path: ids equal "
-        f"{same_ids}, image max|d| {err:.2e} (limit 1e-3)")
+    log(f"[reference] small stack{f' ({quant})' if quant else ''}, largest "
+        f"|gamma| {_max_gamma(vc, p0, [3, 7]):.3f}, card vs CPU plain path: "
+        f"ids equal {same_ids}, image max|d| {err:.2e} (limit 1e-3)")
     if not same_ids or err > 1e-3:
         raise AssertionError("card path disagrees with the CPU reference")
+
+
+def _small_forward(vc, p, dev, xs, cond):
+    """One cached forward per scale of the small stack with an INT8 KV
+    cache: the logits of every scale (vocab and rows gathered under a
+    mesh) and the cache."""
+    cache = QuantizedKVCache.create(vc, cond.shape[0], device=dev)
+    logits = []
+    with torch.inference_mode(), full_f32():
+        for (bg, ed), x in zip(vc.begin_ends, xs):
+            rows = data_rows(x.shape[0])
+            h = apply_transformer(vc, p, x[rows].to(dev), cond[rows].to(dev),
+                                  cache=cache, cache_begin=bg, kv_len=ed)
+            lg = get_logits(vc, p, h, cond[rows].to(dev))
+            logits.append(gather_data(gather_model(lg)).cpu())
+    return torch.cat([lg.flatten() for lg in logits]), cache
+
+
+def _small_inputs(vc):
+    gen = torch.Generator().manual_seed(5)
+    cond = torch.randn(4, vc.embed_dim, generator=gen)
+    xs = [torch.randn(4, ed - bg, vc.embed_dim, generator=gen)
+          for bg, ed in vc.begin_ends]
+    return xs, cond
 
 
 def phase_small_reference_quant():
@@ -940,48 +1099,34 @@ def phase_small_reference_quant():
     size, and equal greedy ids. The two compute the same quantized function
     and differ only in the order of f32 sums and in tanh's last bit, which
     moves a logit by about 1e-7 of its size; an activation that quantizes
-    one int8 step apart (a rounding tie that flips) would move it by about
-    1e-3 and fails the check, and the failure names the first token whose
-    id differs and its scale."""
-    pns = (1, 2, 3)
-    vc = VARConfig(depth=2, num_classes=10, patch_nums=pns, vocab_size=64,
-                   Cvae=8, head_dim=32)
-    qc = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=pns)
-    p = init_var_params(vc, seed=3, device="cpu")
-    p["head"]["w"].normal_(0, 0.05, generator=torch.Generator().manual_seed(4))
-    p = quantize_var_params(p, mode="w8a8")
-    q = init_vqvae_params(qc, seed=4, device="cpu", eini=1.0)
-    gen = torch.Generator().manual_seed(5)
-    cond = torch.randn(4, vc.embed_dim, generator=gen)
-    xs = [torch.randn(4, ed - bg, vc.embed_dim, generator=gen)
-          for bg, ed in vc.begin_ends]
+    one int8 step apart (a rounding tie that flips) moves the logits by far
+    more, and the failure names the first token whose id differs and its
+    scale."""
+    vc, qc, p, q = _small_stack("w8a8")
+    xs, cond = _small_inputs(vc)
     out = {}
     for dev in ("cpu", DEV):
         pd, qd = _to(p, dev), _to(q, dev)
-        cache = QuantizedKVCache.create(vc, 4, device=dev)
-        logits = []
-        with torch.inference_mode(), full_f32():
-            for (bg, ed), x in zip(vc.begin_ends, xs):
-                h = apply_transformer(vc, pd, x.to(dev), cond.to(dev),
-                                      cache=cache, cache_begin=bg, kv_len=ed)
-                logits.append(get_logits(vc, pd, h, cond.to(dev)).cpu())
+        logits, _ = _small_forward(vc, pd, dev, xs, cond)
         ids = decode_all_scales(vc, qc, pd, qd["quant"], [3, 7], 0,
                                 SamplingConfig(cfg=1.5, top_k=1), torch.float32,
                                 return_ids=True, kv_mode="int8", device=dev)[1]
-        out[dev] = (torch.cat([lg.flatten() for lg in logits]), ids.cpu())
+        out[dev] = (logits, ids.cpu())
     lc, lg = out["cpu"][0], out[DEV][0]
     rel = ((lc - lg).abs().max() / lc.abs().max()).item()
     differ = (out["cpu"][1] != out[DEV][1]).nonzero().tolist()
-    log(f"[reference] quantized small stack (w8a8, int8 KV, f32), card vs "
-        f"CPU plain path: logits max|d| / max|ref| {rel:.2e} (limit 1e-5), "
-        f"greedy ids differ at {len(differ)} tokens (need 0)")
+    log(f"[reference] quantized small stack (w8a8, int8 KV, f32), largest "
+        f"|gamma| {_max_gamma(vc, p, [3, 7]):.3f}, card vs CPU plain path: "
+        f"logits max|d| / max|ref| {rel:.2e} (limit 1e-5), greedy ids differ "
+        f"at {len(differ)} tokens (need 0)")
     if differ:
         row, tok = differ[0]
         si = next(i for i, (bg, ed) in enumerate(vc.begin_ends) if tok < ed)
         raise AssertionError(
             f"quantized greedy ids differ first at row {row}, token {tok} "
-            f"(scale {si}, pn={pns[si]}): CPU {out['cpu'][1][row, tok].item()}"
-            f" vs card {out[DEV][1][row, tok].item()}")
+            f"(scale {si}, pn={SMALL_PNS[si]}): CPU "
+            f"{out['cpu'][1][row, tok].item()} vs card "
+            f"{out[DEV][1][row, tok].item()}")
     if rel > 1e-5:
         raise AssertionError(f"quantized card logits differ from the CPU "
                              f"reference by {rel:.2e} of their size")
@@ -1080,6 +1225,25 @@ def phase_kernel_times(launches, errs, smp):
         f"bound_ms {q_bound:.4f} ({q_by}) launches/decode "
         f"{launches['act_quantize'] // N_BATCHES}; K=1920 without GELU "
         f"kernel_ms {q1_ms:.4f} bound_ms {q1_bound:.4f} ({q1_by})")
+    # the 1x2 rank's fc2 input (K=3840): the two split-row passes beside
+    # one whole pass; bounds: x and the bias read, scales written (scale
+    # only), and x, the bias and the scales read, int8 written (given)
+    xh, bh = x[:, :3840].contiguous(), bias[:3840].contiguous()
+    sh = act_scale_kernel(xh, bh, True)
+    split = {"scale_only_ms": cuda_ms(lambda: act_scale_kernel(xh, bh, True), 50),
+             "given_scale_ms": cuda_ms(
+                 lambda: act_quantize_kernel(xh, bh, True, scale=sh), 50),
+             "one_pass_ms": cuda_ms(lambda: act_quantize_kernel(xh, bh, True), 50),
+             "scale_only_bound_ms": (M * 3840 * 2 + 3840 * 2 + M * 4)
+             / HBM_BPS * 1e3,
+             "given_scale_bound_ms": act_quantize_bound(M, 3840, True)[0]}
+    log(f"[time] act_quantize split row (M=8192 K=3840 bf16, bias + GELU, "
+        f"the 1x2 rank's fc2 input): scale-only pass "
+        f"{split['scale_only_ms']:.4f} ms (bound "
+        f"{split['scale_only_bound_ms']:.4f}), given-scale pass "
+        f"{split['given_scale_ms']:.4f} ms (bound "
+        f"{split['given_scale_bound_ms']:.4f}), one whole pass "
+        f"{split['one_pass_ms']:.4f} ms")
 
     K = 1920
     mm = {}
@@ -1130,17 +1294,17 @@ def phase_kernel_times(launches, errs, smp):
          "launches": launches["act_quantize"],
          "max_abs_err": errs[("act_quantize", 7680)],
          "ms": q_ms, "plain_ms": q_plain, "bound_ms": q_bound,
-         "bound_by": q_by, "library_ms": None},
+         "bound_by": q_by, "library_ms": None, "split_row_k3840": split},
         {"name": "int8_matmul", "route": "cuda",
          "source": "sdvar_tpu_torch/csrc/matmul_int8.cu",
          "replaces": "sdvar_tpu/ops/pallas/matmul_int8.py:30",
          "launches": launches["int8_matmul"],
-         "max_abs_err": errs[("int8_matmul", torch.float32)],
+         "max_abs_err": errs[("int8_matmul", torch.float32, 4096)],
          "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
          "bound_by": m_by, "library_ms": m_lib,
          "bf16_fc1": {"ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
                       "bound_by": b_by, "library_ms": b_lib,
-                      "max_abs_err": errs[("int8_matmul", torch.bfloat16)]}},
+                      "max_abs_err": errs[("int8_matmul", torch.bfloat16, 7680)]}},
     ]
     return kernels
 
@@ -1776,8 +1940,7 @@ def phase_microbench(errs):
     time beside the plain version, the bound and two library figures,
     torch._int_mm on pre-quantized operands (the product alone, the
     microbenchmark's int8_int32) and the port's three-launch w8a8_matmul
-    (w8a8_s8); fc2 s9 and the bf16 form beside it. Also row 9 (not ported):
-    the bound of the x * 2.0 probe and the time of that PyTorch call."""
+    (w8a8_s8); fc2 s9 and the bf16 form beside it."""
     torch.cuda.synchronize()
     _reset_counts()
     rows = microbench_int8_matmul.run()
@@ -1810,12 +1973,6 @@ def phase_microbench(errs):
             f"{r['pl_bf16']['ms']:.4f} (bound {b_bound:.4f}); bf16 matmul "
             f"{r['bf16']['ms']:.4f}")
         del x, wq, ws
-    probe = torch.randn(8, 512, device=DEV)
-    p9 = cuda_ms(lambda: probe * 2.0, 200)
-    b9 = 2 * probe.numel() * 4 / HBM_BPS * 1e3
-    log(f"[time] row 9 probe (tests/test_tp_pallas.py:194, not ported): x * 2.0 "
-        f"on (8, 512) f32, library_ms {p9:.4f}, bound_ms {b9:.6f} (bytes: "
-        f"16 KiB read, 16 KiB written)")
     torch.cuda.empty_cache()
     fc1 = line.pop("fc1 s9")
     return {"name": "w8a8_fused", "route": "cuda",
@@ -1823,8 +1980,498 @@ def phase_microbench(errs):
             "replaces": "tools/microbench_int8_matmul.py:42",
             "launches": launches["w8a8_fused"],
             "max_abs_err": errs[("w8a8_fused", True, "fc1 s9")],
-            **fc1, "fc2_s9": line["fc2 s9"],
-            "row9_probe": {"library_ms": p9, "bound_ms": b9}}
+            **fc1, "fc2_s9": line["fc2 s9"]}
+
+
+# ---------------------------------------------------------------------------
+# Sixth slice: the repaired divisions, the f32 server, the mesh
+# ---------------------------------------------------------------------------
+
+def _tie_data(shape, dtype, axis: int, seed: int) -> torch.Tensor:
+    """Random data whose every slice along ``axis`` holds its amax (1.5)
+    and a run of elements at exactly amax / 2: rounding ties of x / s."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(shape, generator=g) * 0.5).clamp(-1.4, 1.4).movedim(axis, -1)
+    x[..., 0] = 1.5
+    x[..., 1:9] = 0.75
+    x[..., 9:13] = -0.75
+    return x.movedim(-1, axis).to(dtype).contiguous()
+
+
+def phase_quant_bits():
+    """The card's scale bits and int8 (e4m3) values against the CPU's for
+    the four quantizers that divide by 127 (448): ``quantize_weight``,
+    ``quantize_weight_fp8`` (d30 qkv-shaped weights), ``quantize_tokens``
+    (the INT8 KV of a scale-9 layer) and the dynamic scales of
+    ``conv2d_nhwc_w8a8``, on bf16 and f32 data full of ties."""
+    def same(a, b):
+        if a.dtype == torch.float8_e4m3fn:
+            a, b = a.view(torch.uint8), b.view(torch.uint8)
+        return torch.equal(a.cpu(), b.cpu())
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        w = _tie_data((2, 1920, 5760), dtype, axis=-2, seed=1)
+        for fn in (quantize_weight, quantize_weight_fp8):
+            c, g = fn(w), fn(w.to(DEV))
+            rows.append((f"{fn.__name__} {str(dtype)[6:]}",
+                         same(c.scale, g.scale), same(c.q, g.q)))
+        x = _tie_data((32, 256, 1920), dtype, axis=-1, seed=2)
+        (cq, cs), (gq, gs) = quantize_tokens(x), quantize_tokens(x.to(DEV))
+        rows.append((f"quantize_tokens {str(dtype)[6:]}", same(cs, gs),
+                     same(cq, gq)))
+    seen = []  # the CPU's operands, then the card's
+    real = conv_s8_ops.conv3x3_s8
+
+    def capture(xq, wq, scale, bias, out_dtype):
+        seen.append((xq, wq, scale))
+        return real(xq, wq, scale, bias, out_dtype)
+
+    conv_s8_ops.conv3x3_s8 = capture
+    try:
+        cp = {"w": _tie_data((160, 160, 3, 3), torch.float32, axis=1, seed=3),
+              "b": torch.zeros(160)}
+        cx = _tie_data((2, 32, 32, 160), torch.bfloat16, axis=-1, seed=4)
+        conv_s8_ops.conv2d_nhwc_w8a8(cp, cx)
+        conv_s8_ops.conv2d_nhwc_w8a8(_to(cp, DEV), cx.to(DEV))
+    finally:
+        conv_s8_ops.conv3x3_s8 = real
+    (xc, wc, sc), (xg, wg, sg) = seen
+    rows.append(("conv2d_nhwc_w8a8 dynamic", same(sc, sg),
+                 same(xc, xg) and same(wc, wg)))
+    for tag, s_ok, q_ok in rows:
+        log(f"[bits] {tag}: card scales bit-equal to the CPU's {s_ok}, "
+            f"values bit-equal {q_ok}")
+    if not all(s_ok and q_ok for _, s_ok, q_ok in rows):
+        raise AssertionError("the card's quantization bits differ from the CPU's")
+
+
+def phase_f32_server(name):
+    """The f32 server (f32 weights and KV cache, the golden f32 NCHW pixel
+    decoder, uint8 delivery) at VAR-d30, bucket 16: 16 requests, then the
+    same 16 in reverse order, so in other slots: bit-equal images."""
+    var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    params = init_var_params(var_cfg, seed=0, device=DEV, dtype=torch.float32)
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    srv = GenerationServer(var_cfg, vae_cfg, params, vae, samp=samp,
+                           max_batch=SERVE_B, buckets=[SERVE_B],
+                           max_wait_ms=20.0, dtype=torch.float32,
+                           kv_mode="f32", deliver="u8", device=DEV)
+    srv.start()
+    try:
+        reqs = [((i * 41) % 1000, 50_000 + i) for i in range(SERVE_B)]
+        first, wall = _serve(srv, reqs)
+        _check_results(first, "serve f32")
+        again, wall2 = _serve(srv, reqs[::-1])
+        _check_results(again, "serve f32")
+    finally:
+        srv.stop()
+    differ = [i for i in range(SERVE_B)
+              if not (first[i].image == again[SERVE_B - 1 - i].image).all()]
+    log(f"[serve f32] {name}: {SERVE_B} requests in {wall:.3f} s (the first "
+        f"batch, warm-up included) and again in reverse slots in "
+        f"{wall2:.3f} s: {SERVE_B - len(differ)} of {SERVE_B} images "
+        f"bit-equal")
+    if differ:
+        i = differ[0]
+        d = abs(first[i].image.astype(int) - again[SERVE_B - 1 - i].image.astype(int))
+        raise AssertionError(f"the f32 server's pixels depend on the batch "
+                             f"slot: {len(differ)} images differ, the first "
+                             f"by up to {d.max()} u8 steps")
+    del params, vae, srv
+    torch.cuda.empty_cache()
+
+
+def phase_probe_times(launches):
+    """Row 9: the probe kernel (``o = x * 2.0``, (8, 512) f32) against its
+    plain version (bit-equal), its time beside the plain version's, the
+    bound and ``x * 2.0`` as one PyTorch call; ``launches`` per rank from
+    the sharded probe of the mesh phase."""
+    x = torch.randn(8, 512, device=DEV)
+    got, want = scale_probe_kernel(x), scale_probe_plain(x)
+    if not torch.equal(got, want):
+        raise AssertionError("scale_probe kernel disagrees with x * 2.0")
+    k_ms = cuda_ms(lambda: scale_probe_kernel(x), 200)
+    p_ms = cuda_ms(lambda: scale_probe_plain(x), 200)
+    l_ms = cuda_ms(lambda: torch.mul(x, 2.0), 200)
+    bound = 2 * x.numel() * 4 / HBM_BPS * 1e3
+    log(f"[time] scale_probe (8, 512) f32: kernel_ms {k_ms:.4f} plain_ms "
+        f"{p_ms:.4f} library_ms {l_ms:.4f} (torch.mul(x, 2.0)) bound_ms "
+        f"{bound:.7f} (bytes: 16 KiB read, 16 KiB written); bit-equal to "
+        f"the plain version; launches per rank in the sharded probe "
+        f"{launches}")
+    return {"name": "scale_probe", "route": "triton",
+            "source": "sdvar_tpu_torch/ops/kernels/scale_probe.py",
+            "replaces": "tests/test_tp_pallas.py:194",
+            "launches": launches[0], "launches_per_rank": launches,
+            "max_abs_err": (got - want).abs().max().item(),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": l_ms}
+
+
+MESH_WORLD = 2
+MESH_TIMEOUT = 420.0
+MESH_LABELS = torch.arange(B) * 61 % 1000
+MESH_SEED = 7
+SMALL_MESHES = {"1x2": MeshConfig(data=1, model=2),
+                "2x1": MeshConfig(data=2, model=1)}
+
+
+def _mesh_var(var_cfg, mode):
+    """VAR-d30 of the mesh phase: the bf16 path's seed with AdaLN biases
+    drawn at 0.3 from a seeded generator on the card, as the small stacks'
+    are, so the blocks take part (the initialiser's gammas of about 1e-5
+    would let no partial sum move a token); quantized for "w8a8"."""
+    p = init_var_params(var_cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+    b = p["blocks"]["ada_lin_b"]
+    b.copy_(torch.randn(b.shape, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(6)) * 0.3)
+    if mode == "w8a8":
+        p = quantize_var_params(p, mode="w8a8")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return p
+
+
+def _mesh_decode_ids(var_cfg, vae_cfg, params, quant, samp, kv_mode):
+    return decode_all_scales(var_cfg, vae_cfg, params, quant, MESH_LABELS,
+                             MESH_SEED, samp, return_ids=True, kv_mode=kv_mode,
+                             gather=True, device=DEV)[1]
+
+
+def phase_mesh(name):
+    """The mesh paths on two ranks that share cuda:0 (gloo: NCCL refuses
+    two ranks on one card), started by ``parallel.launch`` with a deadline:
+    a rank that fails or exits non-zero fails the run. Here, before: the
+    unsharded d30 decodes the ranks' ids are compared with. After: the
+    ranks' reports, held against each other and against those ids."""
+    var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    quant = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)["quant"]
+    ref = {}
+    for mode in ("bf16", "w8a8"):
+        params = _mesh_var(var_cfg, mode)
+        if mode == "bf16":
+            gamma = _max_gamma(var_cfg, params, MESH_LABELS.tolist(), DEV)
+            log(f"[mesh] d30 params: AdaLN biases drawn at 0.3, largest "
+                f"|gamma| {gamma:.3f}")
+        ref[mode] = _mesh_decode_ids(var_cfg, vae_cfg, params, quant, samp,
+                                     "bf16" if mode == "bf16" else "int8").cpu()
+        del params
+    del quant
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.time()
+        logs = launch([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                       out], MESH_WORLD, MESH_TIMEOUT)
+        wall = time.time() - t0
+        reps = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+        arrs = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+                for r in range(MESH_WORLD)]
+    for line in logs[0].splitlines():
+        if line.startswith("[mesh"):
+            log(line)
+    log(f"[mesh] {MESH_WORLD} ranks on cuda:0 (gloo) ran in {wall:.1f} s, "
+        f"each exited 0")
+    for r in range(1, MESH_WORLD):
+        for line in logs[r].splitlines():
+            if line.startswith("[mesh] rank") or line.startswith("[mesh d30"):
+                log(line)
+    for tag in ("d30 1x2 bf16", "d30 1x2 w8a8", "d30 2x1 bf16", "d30 2x1 w8a8",
+                "spec 1x2"):
+        key = tag.replace(" ", "_") + "_ids"
+        a, b = arrs[0][key], arrs[1][key]
+        if not np.array_equal(a, b):
+            raise AssertionError(f"[mesh] {tag}: the ranks' ids differ at "
+                                 f"{(a != b).mean():.4f} of the tokens")
+        if tag.startswith("d30"):
+            want = ref["bf16" if tag.endswith("bf16") else "w8a8"].numpy()
+            share = float((a == want).mean())
+            reps[0][tag]["share_equal_unsharded"] = share
+            # W8A8 on 1x2 sums int32 partials and quantizes with the whole
+            # row's scale: the unsharded ids are required there; bf16
+            # partial sums round before the reduce, so bf16 is reported
+            gated = tag == "d30 1x2 w8a8"
+            log(f"[mesh] {tag}: both ranks' ids identical; share of tokens "
+                f"equal to the unsharded decode of the same seeds {share:.6f}"
+                f"{' (1 required)' if gated else ''}")
+            if gated and share != 1.0:
+                raise AssertionError(f"[mesh] {tag}: ids differ from the "
+                                     f"unsharded decode on "
+                                     f"{1 - share:.6f} of the tokens")
+    srv = [rep["server 1x2"] for rep in reps]
+    if any(s["delivered_once"] is not True or s["resubmitted_bit_equal"] != SERVE_B
+           for s in srv):
+        raise AssertionError(f"[mesh] server: {srv}")
+    if not np.array_equal(arrs[0]["server_imgs"], arrs[1]["server_imgs"]):
+        raise AssertionError("[mesh] server: the model ranks delivered other "
+                             "images")
+    return reps
+
+
+def _mesh_run_small(rep, arrs):
+    """The small stack on the card under each small mesh: against the
+    unsharded card path of this rank (f32 greedy): plain ids equal and
+    f_hat within 1e-5 of its size; W8A8 + INT8 KV logits within 1e-5 of
+    their size, ids equal, the layer-0 scale-0 KV scale planes bit-equal
+    (a rank-local amax would move them)."""
+    samp = SamplingConfig(cfg=1.5, top_k=1)
+    xs, cond = _small_inputs(_small_stack()[0])
+    for quant in (None, "w8a8"):
+        vc, qc, p, q = _small_stack(quant)
+        qd = _to(q, DEV)
+        kv = "int8" if quant else "f32"
+        set_tp_mesh(None)
+        pd = _to(p, DEV)
+        f_ref, ids_ref = decode_all_scales(vc, qc, pd, qd["quant"], [3, 7, 1, 8],
+                                           0, samp, torch.float32,
+                                           return_ids=True, kv_mode=kv,
+                                           device=DEV)
+        if quant:
+            lg_ref, cache_ref = _small_forward(vc, pd, DEV, xs, cond)
+        for tag, mcfg in SMALL_MESHES.items():
+            mesh = create_mesh(mcfg)
+            set_tp_mesh(mesh)
+            ps = shard_tree(pd, var_param_specs(vc), mesh)
+            f_hat, ids = decode_all_scales(vc, qc, ps, qd["quant"], [3, 7, 1, 8],
+                                           0, samp, torch.float32,
+                                           return_ids=True, kv_mode=kv,
+                                           gather=True, device=DEV)
+            ok = torch.equal(ids, ids_ref)
+            line = f"[mesh small {tag}{' w8a8 int8kv' if quant else ''}] ids equal to the unsharded card path {ok}"
+            if quant:
+                lg, cache = _small_forward(vc, ps, DEV, xs, cond)
+                rel = ((lg - lg_ref).abs().max() / lg_ref.abs().max()).item()
+                planes = all(torch.equal(
+                    gather_data(getattr(cache, s)[0, :, :1], dim=0).cpu(),
+                    getattr(cache_ref, s)[0, :, :1].cpu()) for s in ("k_s", "v_s"))
+                ok = ok and rel <= 1e-5 and planes
+                line += (f", logits max|d| / max|ref| {rel:.2e} (limit 1e-5), "
+                         f"layer-0 scale-0 KV scale planes bit-equal {planes}")
+            else:
+                rel = ((f_hat - f_ref).abs().max() / f_ref.abs().max()).item()
+                ok = ok and rel <= 1e-5
+                line += f", f_hat max|d| / max|ref| {rel:.2e} (limit 1e-5)"
+            log(f"{line} {'ok' if ok else 'FAIL'}")
+            rep[f"small {tag} {quant or 'f32'}"] = ok
+            if not ok:
+                raise AssertionError(line)
+            set_tp_mesh(None)
+
+
+def _mesh_run_d30(rep, arrs, tag, mcfg):
+    """VAR-d30 B=16 on a mesh (``_mesh_var``'s weights), bf16 then W8A8 +
+    INT8 KV: three timed runs of one decode after a warm-up, every run
+    printed and giving the same ids; counts set to 0 just before the first
+    and read just after it (per rank)."""
+    var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    quant = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)["quant"]
+    mesh = create_mesh(mcfg)
+    set_tp_mesh(mesh)
+    S, tp = len(PNS), mcfg.model
+    for mode in ("bf16", "w8a8"):
+        full = _mesh_var(var_cfg, mode)
+        params = shard_tree(full, var_param_specs(var_cfg), mesh)
+        del full
+        torch.cuda.empty_cache()
+        kv = "bf16" if mode == "bf16" else "int8"
+        _mesh_decode_ids(var_cfg, vae_cfg, params, quant, samp, kv)  # warm-up
+        # act-quant: qkv and fc1 once a layer, proj and fc2 twice when the
+        # model is split (the scale-only pass, then the quantizing pass
+        # with the row's all-reduced scale)
+        want = (_want(attention=S * DEPTH, sampler=S) if mode == "bf16" else
+                _want(attention_int8=S * DEPTH, sampler=S, int8_matmul=S,
+                      act_quantize=(4 if tp == 1 else 6) * S * DEPTH))
+        lat = []  # three timed runs of the same decode; the first is counted
+        for i in range(3):
+            torch.cuda.synchronize()
+            if i == 0:
+                _reset_counts()
+            t0 = time.time()
+            got = _mesh_decode_ids(var_cfg, vae_cfg, params, quant, samp, kv)
+            torch.cuda.synchronize()
+            lat.append((time.time() - t0) * 1e3)
+            if i == 0:
+                launches, ids = _read_counts(), got
+            elif not torch.equal(got, ids):
+                raise AssertionError(f"[mesh] d30 {tag} {mode}: the same "
+                                     f"decode gave other ids in run {i + 1}")
+        key = f"d30 {tag} {mode}"
+        rep[key] = {"launches": launches, "latent_ms": lat,
+                    "rows_per_rank": B // mcfg.data,
+                    "heads_per_rank": DEPTH // tp}
+        arrs[key.replace(" ", "_") + "_ids"] = ids.cpu().numpy()
+        ok = launches == want and ids.shape == (B, var_cfg.L)
+        log(f"[mesh d30 {tag} {mode}] rank {mesh.rank}: B={B} ({B // mcfg.data} "
+            f"rows, {DEPTH // tp} heads per rank) latent {min(lat):.1f} ms "
+            f"(runs {', '.join(f'{t:.1f}' for t in lat)}); launches per "
+            f"decode {launches} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[mesh] {key}: launches {launches} != {want}")
+        del params
+        torch.cuda.empty_cache()
+    set_tp_mesh(None)
+
+
+def _mesh_run_server(rep, arrs):
+    """The mesh server (1x2, W8A8 + INT8 KV, u8, bucket 16; its kernels
+    warmed by the d30 decodes before it): 32 requests, each delivered once
+    on each rank (one data group each), then 16 of them again in reverse
+    order: bit-equal images."""
+    var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    params = _quantized_var(var_cfg, "w8a8")
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    srv = GenerationServer(var_cfg, vae_cfg, params, vae, samp=samp,
+                           max_batch=SERVE_B, buckets=[SERVE_B],
+                           max_wait_ms=20.0, dtype=torch.bfloat16,
+                           kv_mode="int8", deliver="u8",
+                           mesh_cfg=MeshConfig(data=1, model=2), device=DEV)
+    del params
+    srv.start()
+    try:
+        reqs = [((i * 43) % 1000, 40_000 + i) for i in range(2 * SERVE_B)]
+        c0 = srv.stats["completed"]
+        results, wall = _serve(srv, reqs)
+        _check_results(results, "mesh server")
+        once = (srv.stats["completed"] - c0 == len(reqs)
+                and len({r.id for r in results}) == len(reqs)
+                and not srv._results)
+        again, _ = _serve(srv, reqs[:SERVE_B][::-1])
+        _check_results(again, "mesh server")
+    finally:
+        srv.stop()
+    same = sum(bool((results[i].image == again[SERVE_B - 1 - i].image).all())
+               for i in range(SERVE_B))
+    lat = sorted(r.latency_s * 1e3 for r in results)
+    rep["server 1x2"] = {"delivered_once": once, "resubmitted_bit_equal": same,
+                         "img_per_s": len(reqs) / wall, "wall_s": wall,
+                         "p50_ms": lat[len(lat) // 2]}
+    arrs["server_imgs"] = np.stack([r.image for r in results])
+    log(f"[mesh server 1x2] rank {DIST.get_rank()}: {len(reqs)} requests in "
+        f"{wall:.3f} s, {len(reqs) / wall:.2f} img/s delivered, p50 "
+        f"{lat[len(lat) // 2]:.1f} ms; each delivered once {once}; {SERVE_B} "
+        f"again in reverse slots: {same} of {SERVE_B} bit-equal")
+    del srv, vae
+    torch.cuda.empty_cache()
+
+
+def _mesh_run_spec(rep, arrs):
+    """The speculative engine on the 1x2 mesh: VAR-d16 -> VAR-d30, bf16,
+    force_accept_all at gamma 2: 5 verify calls, every scale accepted."""
+    vae_cfg = VQVAEConfig()
+    d_cfg, t_cfg = var_config_pair(DRAFT_DEPTH, DEPTH)
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
+    mesh = create_mesh(MeshConfig(data=1, model=2))
+    set_tp_mesh(mesh)
+    specs = var_param_specs(t_cfg), var_param_specs(d_cfg)
+    p30 = shard_tree(init_var_params(t_cfg, seed=0, device=DEV,
+                                     dtype=torch.bfloat16), specs[0], mesh)
+    p16 = shard_tree(init_var_params(d_cfg, seed=5, device=DEV,
+                                     dtype=torch.bfloat16), specs[1], mesh)
+    eng = SpeculativeEngine(vae_cfg, d_cfg, t_cfg, vae, p16, p30, mesh=mesh,
+                            device=DEV)
+    spec = SpeculativeConfig(gamma=2, force_accept_all=True)
+    eng.generate_speculative(MESH_LABELS, 4, spec, samp)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    f_hat, st, ids = eng.generate_speculative(MESH_LABELS, 4, spec, samp,
+                                              return_ids=True)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    launches = _read_counts()
+    S = len(PNS)
+    want = _want(attention=DRAFT_DEPTH * st.draft_calls + DEPTH * st.target_calls,
+                 sampler=st.draft_calls)
+    ok = (st.target_calls == 5 and st.accept_count == S and launches == want
+          and f_hat.shape == (B, 32, 16, 16) and bool(torch.isfinite(f_hat).all()))
+    rep["spec 1x2"] = {"stats": st.as_dict(), "latent_ms": ms,
+                       "launches": launches}
+    arrs["spec_1x2_ids"] = ids.cpu().numpy()
+    log(f"[mesh spec 1x2] rank {mesh.rank}: d16 -> d30 force_accept_all "
+        f"gamma=2: {st.as_dict()}; latent {ms:.1f} ms; launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[mesh] spec: {st.as_dict()}, {launches} != {want}")
+    set_tp_mesh(None)
+    del eng, p16, p30
+    torch.cuda.empty_cache()
+
+
+def _mesh_gloo_rate(rep):
+    """What one model-split collective costs here: the all-reduce (sum) of
+    a scale-9 proj output of this rank, (2B*256, 1920), as bf16 (the bf16
+    path) and as int32 (the W8A8 path), over the 1x2 mesh's gloo group,
+    through host memory; host clock around 5 calls each after one warm-up,
+    each ending in a synchronize."""
+    mesh = create_mesh(MeshConfig(data=1, model=MESH_WORLD))
+    rates = {}
+    for dtype in (torch.bfloat16, torch.int32):
+        t = torch.ones(2 * B * 256, DEPTH * 64, dtype=dtype, device=DEV)
+        mesh.all_reduce(t)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(5):
+            t0 = time.time()
+            mesh.all_reduce(t)
+            torch.cuda.synchronize()
+            ms.append((time.time() - t0) * 1e3)
+        mb = t.numel() * t.element_size() / 1e6
+        rates[str(dtype)[6:]] = {"mb": mb, "ms": min(ms), "runs_ms": ms}
+        log(f"[mesh gloo] rank {mesh.rank}: all_reduce of {mb:.1f} MB "
+            f"{str(dtype)[6:]} (2B*256 x 1920) over 2 ranks on one card: "
+            f"{min(ms):.2f} ms (runs {', '.join(f'{x:.2f}' for x in ms)}), "
+            f"{mb / min(ms):.3f} GB/s of the tensor")
+        del t
+    rep["gloo all_reduce"] = rates
+
+
+def mesh_rank_main(out_dir: str) -> int:
+    """One rank of ``phase_mesh``: the sharded probe, the small stacks, the
+    d30 decodes, the mesh server and the speculative engine; writes its
+    report and its ids for the parent."""
+    DIST.initialize()
+    torch.cuda.set_device(DIST.rank_device())
+    rank = DIST.get_rank()
+    rep, arrs = {"rank": rank}, {}
+    mesh = create_mesh(MeshConfig(data=1, model=MESH_WORLD))
+    set_tp_mesh(mesh)
+    x = torch.randn(8, 512, device=DEV, generator=torch.Generator(
+        device=DEV).manual_seed(9))
+    _reset_counts()
+    got = sharded_scale_probe(x)
+    torch.cuda.synchronize()
+    n = scale_probe_kernel.launches
+    ok = (torch.equal(got, scale_probe_kernel(x))
+          and torch.equal(got, scale_probe_plain(x)))
+    rep["probe"] = {"launches": n, "bit_equal": ok}
+    log(f"[mesh probe] rank {rank}: the sharded probe (this rank's 256 "
+        f"columns, then all-gathered) bit-equal to one unsharded launch and "
+        f"to x * 2.0 {ok}; {n} launch on this rank")
+    if not ok or n != 1:
+        raise AssertionError(f"the sharded probe: bit-equal {ok}, {n} "
+                             f"launches on this rank (want 1)")
+    set_tp_mesh(None)
+    _mesh_gloo_rate(rep)
+    _mesh_run_small(rep, arrs)
+    for tag, mcfg in (("1x2", MeshConfig(data=1, model=2)),
+                      ("2x1", MeshConfig(data=2, model=1))):
+        _mesh_run_d30(rep, arrs, tag, mcfg)
+    _mesh_run_server(rep, arrs)
+    _mesh_run_spec(rep, arrs)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrs)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    DIST.shutdown()
+    return 0
 
 
 def _leaves(tree):
@@ -1848,11 +2495,17 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+MESH_ROWS = ("attention", "sampler", "attention_int8", "act_quantize",
+             "int8_matmul")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase_mesh
+        return mesh_rank_main(sys.argv[2])
     t_start = time.time()
     name = phase_device_and_build()
     with full_f32():  # the plain f32 versions' products, as the kernels'
@@ -1861,12 +2514,14 @@ def main() -> int:
         errs.update(phase_cache_kernel_checks())
         errs.update(phase_fused_checks())
     errs.update(phase_conv_checks())
+    phase_quant_bits()
     launches = phase_main_path(name)
     launches.update(phase_quant_path(name))
     switched = phase_cache_switch(name)
     spec_launches = phase_speculative(name)
     phase_spec_serving(name)
     conv_launches, per_decode = phase_serving(name)
+    phase_f32_server(name)
     phase_small_reference()
     phase_small_reference_quant()
     phase_fp8(name)
@@ -1875,6 +2530,10 @@ def main() -> int:
     phase_benchmark_cli()
     phase_bench_serving()
     phase_bench()
+    probe_mesh_placement.run()  # a 1x1 mesh: the same launches and bits
+    t_mesh = time.time()
+    reps = phase_mesh(name)
+    log(f"[mesh] phase took {time.time() - t_mesh:.1f} s")
     with full_f32():
         kernels = phase_kernel_times(launches, errs, smp)
     kernels.append(phase_conv_times(conv_launches, per_decode, errs))
@@ -1882,7 +2541,14 @@ def main() -> int:
         kernels += phase_cache_kernel_times(
             spec_launches["cache_write"],
             switched["w8a8"]["cache_write_int8"], errs)
+    kernels.append(phase_probe_times([rep["probe"]["launches"] for rep in reps]))
     kernels.append(phase_microbench(errs))
+    for row in kernels:  # launches per rank and decode on the d30 mesh paths
+        if row["name"] in MESH_ROWS:
+            row["mesh_launches_per_rank"] = {
+                tag: reps[0][tag]["launches"][row["name"]]
+                for tag in ("d30 1x2 bf16", "d30 1x2 w8a8", "d30 2x1 bf16",
+                            "d30 2x1 w8a8")}
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Model, tokenizer, sampling and speculative-decoding configuration.
+"""Model, tokenizer, sampling, speculative-decoding and mesh configuration.
 
 A copy of the configuration classes of ``sdvar_tpu/config.py`` (the port
 imports nothing from the JAX package). Frozen dataclasses, hashable, with
@@ -187,6 +187,19 @@ class SpeculativeConfig:
     force_accept_at_gamma1: bool = True  # livelock guard
     force_accept_all: bool = False       # accept every drafted scale: the
                                          # pipeline ceiling, for measurement
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process-mesh layout: data-parallel x model (tensor)-parallel ranks,
+    one process per rank (``parallel.mesh.create_mesh``)."""
+
+    data: int = 1
+    model: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model
 
 
 def var_config_pair(

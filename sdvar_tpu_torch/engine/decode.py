@@ -10,6 +10,14 @@ so the scale loop is a Python loop; the cache is written in place.
 (``utils.device.full_f32``): the head, the resizes and the phi convs are
 f32 as in the JAX package.
 
+Under a mesh (``ops.partition.set_tp_mesh``) every rank is handed the
+whole batch's labels and seeds and decodes its own contiguous slice of
+requests (the batch split over "data"), with this rank's shard of the
+parameters and of the KV cache; the request seeds are the whole batch's
+(a request's stream hashes its global slot), so its tokens do not depend
+on the mesh. ``gather`` returns the whole batch in request order on every
+rank, else each rank gets its own rows.
+
 The JAX version pads each scale's queries to a multiple of 64 (an XLA
 matmul workaround) and writes the pad rows into the next scale's cache
 slots; this port does not, so raw cache rows past ``kv_len`` differ from
@@ -28,6 +36,7 @@ from sdvar_tpu_torch.models import quantizer as Q
 from sdvar_tpu_torch.models import var as M
 from sdvar_tpu_torch.models import vqvae as VQ
 from sdvar_tpu_torch.models.var import KVCache
+from sdvar_tpu_torch.ops.partition import data_rows, gather_data
 from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
 from sdvar_tpu_torch.ops.sampling import (
     cfg_double,
@@ -63,7 +72,9 @@ def init_decode(
     The uncond rows use class id ``num_classes``. ``kv_mode``: "bf16",
     "f32" or "int8" (``QuantizedKVCache``: per-token-scaled INT8).
     ``cache``: a preallocated KVCache or QuantizedKVCache to reuse (every
-    scale reads only rows written earlier in the same decode).
+    scale reads only rows written earlier in the same decode). Under a
+    mesh, ``label_B`` and ``seed`` are the whole batch's and the state is
+    this rank's rows.
     """
     dev = resolve_device(device)
     if params["class_emb"].device != dev:
@@ -72,22 +83,26 @@ def init_decode(
     if kv_mode not in ("bf16", "f32", "int8"):
         raise ValueError(f"unknown kv_mode {kv_mode!r} (bf16 | f32 | int8)")
     label_B = torch.as_tensor(label_B, dtype=torch.long, device=dev)
+    B_all = label_B.shape[0]
+    seeds = request_seeds(seed, B_all, dev)
+    rows = data_rows(B_all)
+    label_B, seeds = label_B[rows], seeds[rows]
     B = label_B.shape[0]
     label_2B = cfg_pair(label_B, torch.full_like(label_B, var_cfg.num_classes))
     lvl_pos = M.lvl_pos_embed(var_cfg, params).float()
     sos = params["class_emb"][label_2B].float()
     HW = var_cfg.patch_nums[-1]
     if cache is None and kv_mode == "int8":
-        cache = QuantizedKVCache.create(var_cfg, 2 * B, device=dev)
+        cache = QuantizedKVCache.create(var_cfg, 2 * B_all, device=dev)
     elif cache is None:
         cache = KVCache.create(
-            var_cfg, 2 * B, device=dev,
+            var_cfg, 2 * B_all, device=dev,
             dtype=torch.float32 if kv_mode == "f32" else torch.bfloat16)
     state = DecodeState(
         f_hat=torch.zeros((B, var_cfg.Cvae, HW, HW), device=dev),
         next_map=torch.zeros((B, var_cfg.Cvae, 1, 1), device=dev),
         cache=cache,
-        seeds=request_seeds(seed, B, dev),
+        seeds=seeds,
     )
     return state, sos, lvl_pos
 
@@ -143,10 +158,12 @@ def decode_all_scales(
     samp: SamplingConfig = SamplingConfig(), dtype=torch.bfloat16,
     return_ids: bool = False, kv_mode: str = "bf16",
     cache: Optional[Cache] = None, return_cache: bool = False,
-    device="cuda",
+    device="cuda", gather: bool = False,
 ):
     """All scales -> f_hat (B, Cvae, HW, HW), optionally with the sampled
-    ids (B, L) and the KV cache (pass it back as ``cache`` to reuse it)."""
+    ids (B, L) and the KV cache (pass it back as ``cache`` to reuse it).
+    Under a mesh the rows are this rank's, or with ``gather`` the whole
+    batch's in request order (the cache stays this rank's)."""
     state, sos, lvl_pos = init_decode(var_cfg, params, label_B, seed, dtype,
                                       kv_mode=kv_mode, cache=cache,
                                       device=device)
@@ -156,9 +173,10 @@ def decode_all_scales(
         state, ids = scale_step(var_cfg, vae_cfg, params, quant_params, si,
                                 state, sos, lvl_pos, samp, dtype, mods=mods)
         ids_all.append(ids)
-    out = (state.f_hat,)
+    out = (gather_data(state.f_hat) if gather else state.f_hat,)
     if return_ids:
-        out += (torch.cat(ids_all, dim=1),)
+        ids = torch.cat(ids_all, dim=1)
+        out += (gather_data(ids) if gather else ids,)
     if return_cache:
         out += (state.cache,)
     return out if len(out) > 1 else out[0]
@@ -169,15 +187,17 @@ def generate_images(
     var_cfg: VARConfig, vae_cfg: VQVAEConfig, var_params, vae_params,
     label_B, seed: Seeds = 0,
     samp: SamplingConfig = SamplingConfig(), dtype=torch.bfloat16,
-    kv_mode: str = "bf16", device="cuda",
+    kv_mode: str = "bf16", device="cuda", gather: bool = False,
 ) -> torch.Tensor:
     """Labels -> images (B, 3, H, W) in [0, 1], f32.
 
     ``seed``: an int for the whole batch, or one seed per request; with
     one seed per request, a request's image depends only on its label and
-    seed, not on its batch slot. ``kv_mode`` as in ``init_decode``."""
+    seed, not on its batch slot. ``kv_mode`` as in ``init_decode``. Under
+    a mesh each rank decodes the pixels of its own rows; ``gather`` as in
+    ``decode_all_scales``."""
     f_hat = decode_all_scales(var_cfg, vae_cfg, var_params,
                               vae_params["quant"], label_B, seed, samp, dtype,
                               kv_mode=kv_mode, device=device)
-    img = VQ.fhat_to_img(vae_cfg, vae_params, f_hat)
-    return (img + 1.0) * 0.5
+    img = (VQ.fhat_to_img(vae_cfg, vae_params, f_hat) + 1.0) * 0.5
+    return gather_data(img) if gather else img

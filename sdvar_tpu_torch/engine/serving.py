@@ -26,7 +26,17 @@ as the target, with the batch's per-request seeds, and adds its counters to
 ``stats`` (``spec_target_calls``, ``spec_draft_calls``,
 ``spec_accept_count``, ``spec_reject_count``, ``spec_forced_accepts``). Its
 acceptance is batch-global, so there a request's image may depend on its
-batch companions. Mesh mode (``mesh_cfg``) is not ported.
+batch companions.
+
+Mesh mode (``mesh_cfg``, one server per rank of a joined process group,
+``parallel.distributed.initialize``): each rank cuts its shard of the
+parameters (``parallel.mesh.shard_tree``) and registers the mesh. It is
+SPMD: every rank is handed the same request stream, rank 0 forms each
+batch and broadcasts its request ids, so every rank runs the same batches;
+each data group decodes its slice of the batch, and each rank delivers
+the requests whose rows it holds, so every request is delivered once per
+data group (query a request on a rank that holds its slot:
+slot // (bucket / data) == the rank's data index).
 """
 
 from __future__ import annotations
@@ -39,8 +49,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sdvar_tpu_torch.config import (
+    MeshConfig,
     SamplingConfig,
     SpeculativeConfig,
     VARConfig,
@@ -50,9 +62,20 @@ from sdvar_tpu_torch.engine import decode as D
 from sdvar_tpu_torch.engine.speculative import SpeculativeEngine
 from sdvar_tpu_torch.models import vqvae as VQ
 from sdvar_tpu_torch.models.var import KVCache
+from sdvar_tpu_torch.ops.partition import data_rows, get_tp_mesh, set_tp_mesh
 from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
+from sdvar_tpu_torch.parallel import distributed as DIST
+from sdvar_tpu_torch.parallel.mesh import (
+    check_var_divisible,
+    create_mesh,
+    shard_tree,
+    var_param_specs,
+)
 from sdvar_tpu_torch.utils.device import resolve_device
 
+
+# what rank 0 broadcasts after each poll of a mesh server's queue
+_IDLE, _BATCH, _STOP = 0, 1, 2
 
 # SpecStats counters a speculative server adds up in ``stats["spec_*"]``
 SPEC_STATS = ("target_calls", "draft_calls", "accept_count", "reject_count",
@@ -113,9 +136,8 @@ class GenerationServer:
                 spec is not None and draft_cfg is None):
             raise ValueError("speculative mode needs draft_cfg and "
                              "draft_params (and takes spec only with them)")
-        if mesh_cfg is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported (ROADMAP Queue 1 item 13)")
+        if mesh_cfg is not None and not isinstance(mesh_cfg, MeshConfig):
+            raise ValueError(f"mesh_cfg {mesh_cfg!r} is not a MeshConfig")
         if deliver not in ("f32", "u8"):
             raise ValueError(f"deliver={deliver!r} (f32 | u8)")
         if dtype not in (torch.bfloat16, torch.float32):
@@ -128,6 +150,22 @@ class GenerationServer:
             raise ValueError(f"max_batch {max_batch} exceeds the largest "
                              f"bucket {self.buckets[-1]}")
         self.device = resolve_device(device)
+        # mesh mode: this rank's shards, the mesh registered for the model
+        self.mesh = None
+        if mesh_cfg is not None:
+            if any(b % mesh_cfg.data for b in self.buckets):
+                raise ValueError(f"buckets {self.buckets} do not divide over "
+                                 f"data={mesh_cfg.data}")
+            self.mesh = create_mesh(mesh_cfg)
+            check_var_divisible(var_cfg, self.mesh)
+            var_params = shard_tree(var_params, var_param_specs(var_cfg),
+                                    self.mesh)
+            if draft_cfg is not None:
+                check_var_divisible(draft_cfg, self.mesh)
+                draft_params = shard_tree(draft_params,
+                                          var_param_specs(draft_cfg), self.mesh)
+            set_tp_mesh(self.mesh)
+        self._spmd = self.mesh is not None and DIST.get_world_size() > 1
         self.var_cfg, self.vae_cfg = var_cfg, vae_cfg
         self.var_params, self.vae_params = var_params, vae_params
         self.samp = samp
@@ -145,7 +183,8 @@ class GenerationServer:
             self.spec = spec or SpeculativeConfig()
             self.engine = SpeculativeEngine(
                 vae_cfg, draft_cfg, var_cfg, vae_params, draft_params,
-                var_params, dtype=dtype, kv_mode=kv_mode, device=self.device)
+                var_params, dtype=dtype, kv_mode=kv_mode, mesh=self.mesh,
+                device=self.device)
 
         self._caches: Dict[int, object] = {}  # per-bucket reused KV caches
         self._q: "queue.Queue[Request]" = queue.Queue()
@@ -153,6 +192,7 @@ class GenerationServer:
         self._results_cv = threading.Condition()
         self._next_id = 0
         self._id_lock = threading.Lock()
+        self._pending: Dict[int, Request] = {}  # a mesh rank's, by id
         self._stop = threading.Event()
         self._deliver_stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -181,6 +221,8 @@ class GenerationServer:
         self._deliver_stop.set()
         if self._deliver_thread is not None:
             self._deliver_thread.join(timeout=30)
+        if self.mesh is not None and get_tp_mesh() is self.mesh:
+            set_tp_mesh(None)
 
     def submit(self, label: int, seed: int) -> int:
         with self._id_lock:
@@ -223,6 +265,41 @@ class GenerationServer:
             except queue.Empty:
                 break
         return batch
+
+    def _agree(self) -> Optional[List[Request]]:
+        """A mesh server's next batch, the same on every rank: rank 0 polls
+        its queue and broadcasts the outcome (idle, the batch's request
+        ids, or stop) over the host group; the other ranks take the named
+        requests from their own queues. None: stop."""
+        msg = torch.zeros(2 + self.max_batch, dtype=torch.int64)
+        batch: List[Request] = []
+        if DIST.get_rank() == 0:
+            if self._stop.is_set():
+                msg[0] = _STOP
+            else:
+                batch = self._collect()
+                if batch:
+                    msg[0], msg[1] = _BATCH, len(batch)
+                    msg[2:2 + len(batch)] = torch.tensor([r.id for r in batch])
+        dist.broadcast(msg, src=0, group=DIST.host_group())
+        if msg[0] == _STOP:
+            return None
+        if msg[0] == _IDLE or DIST.get_rank() == 0:
+            return batch
+        return [self._take(rid) for rid in msg[2:2 + int(msg[1])].tolist()]
+
+    def _take(self, rid: int, timeout: float = 60.0) -> Request:
+        """Request ``rid`` of this rank's stream, waiting for its submit."""
+        deadline = time.time() + timeout
+        while rid not in self._pending:
+            try:
+                r = self._q.get(timeout=max(deadline - time.time(), 0.01))
+            except queue.Empty:
+                raise RuntimeError(f"request {rid} of rank 0's batch was not "
+                                   f"submitted on rank {DIST.get_rank()}"
+                                   ) from None
+            self._pending[r.id] = r
+        return self._pending.pop(rid)
 
     def _cache(self, bsz: int):
         """The bucket's KV cache (2 * bsz rows under CFG), made on first
@@ -271,6 +348,7 @@ class GenerationServer:
         imgs = (self._pixels(f_hat) + 1.0) * 0.5
         if self.deliver == "u8":
             imgs = torch.clamp(imgs * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+        lo = data_rows(bsz).start  # the slot of this rank's first row
         done = None
         if imgs.is_cuda:
             # queue the copy behind this batch's work now and mark its end:
@@ -281,21 +359,25 @@ class GenerationServer:
             done = torch.cuda.Event()
             done.record()
             imgs = host
-        self._deliver_q.put((batch, imgs, done, bsz))
+        self._deliver_q.put((batch, imgs, done, bsz, lo))
 
-    def _deliver(self, batch: List[Request], imgs: torch.Tensor, done, bsz: int):
+    def _deliver(self, batch: List[Request], imgs: torch.Tensor, done, bsz: int,
+                 lo: int):
+        """Hand out the images of the batch's slots [lo, lo + len(imgs)),
+        the rows this rank holds (all of them without a mesh)."""
         if done is not None:
             done.synchronize()  # a fault of the batch's device work raises here
         arr = imgs.numpy().copy()  # the pinned buffer goes back to its pool
         now = time.time()
+        mine = batch[lo:lo + arr.shape[0]]
         with self._results_cv:
-            for i, r in enumerate(batch):
+            for i, r in enumerate(mine):
                 self._results[r.id] = Result(
                     id=r.id, image=arr[i], latency_s=now - r.submit_t,
                     batch_size=bsz)
             self._results_cv.notify_all()
         with self._stats_lock:
-            self.stats["completed"] += len(batch)
+            self.stats["completed"] += len(mine)
             self.stats["batches"] += 1
             self.stats["occupancy_sum"] += len(batch) / bsz
 
@@ -328,8 +410,15 @@ class GenerationServer:
     def _loop(self):
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)  # a new thread starts on cuda:0
-        while not self._stop.is_set():
-            batch = self._collect()
+        while True:
+            if self._spmd:
+                batch = self._agree()
+                if batch is None:
+                    return
+            elif self._stop.is_set():
+                return
+            else:
+                batch = self._collect()
             if not batch:
                 continue
             try:

@@ -24,6 +24,14 @@ right, and a rejected window's rows are rewritten at the same offsets
 before any read (a forward writes [begin, end) and only then attends over
 [0, end)). The window's match rates are one device tensor, read back with
 one host sync per round.
+
+On a mesh (``mesh=``, the mesh registered with ``ops.partition``) each
+rank runs its own requests' rows with its shard of both models and keeps
+its part of both caches per batch size. Acceptance stays batch-global:
+the per-scale match counts are all-reduced over "data" before the rates
+are compared, so every rank takes the same branch (a rank that took
+another would wait forever in the next collective), and the target's
+argmax sees the whole vocab (all-gathered over "model").
 """
 
 from __future__ import annotations
@@ -57,6 +65,13 @@ from sdvar_tpu_torch.ops.masks import (
     hidden_prefix_decode_bias,
     prefill_bias,
     verify_window_bias,
+)
+from sdvar_tpu_torch.ops.partition import (
+    data_rows,
+    gather_data,
+    gather_model,
+    get_tp_mesh,
+    reduce_data,
 )
 from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
 from sdvar_tpu_torch.ops.sampling import (
@@ -179,7 +194,9 @@ def _target_verify_window(cfg: VARConfig, params, start: int, gamma: int,
     keys and values go into the cache at its start, and each scale attends
     over the accepted prefix and the window under the block-causal window
     mask. Returns per-scale target argmax ids (B, pn^2) and CFG'd logits
-    (B, pn^2, V), the CFG strength per token."""
+    (B, pn^2, V), the CFG strength per token; under a model split the
+    logits are this rank's vocab columns and the argmax runs on the
+    all-gathered vocab."""
     pns = cfg.patch_nums
     x = _window_x(cfg, params, start, gamma, hub, sos, lvl_pos, dtype)
     bg0 = cfg.begin_ends[start][0]
@@ -189,12 +206,12 @@ def _target_verify_window(cfg: VARConfig, params, start: int, gamma: int,
                             cache_begin=bg0, kv_len=kv_len, mods=mods)
     logits = M.get_logits(cfg, params, h, sos)  # (2B, Lq, V) f32
     mixed = cfg_mix(logits, _t_per_token(pns, samp.cfg, start, gamma, x.device))
+    whole = gather_model(mixed, dim=-1)
     argmax, per_scale = [], []
     pos = 0
     for k in range(start, start + gamma):
-        lg = mixed[:, pos: pos + pns[k] ** 2]
-        argmax.append(lg.argmax(-1).to(torch.int32))
-        per_scale.append(lg)
+        argmax.append(whole[:, pos: pos + pns[k] ** 2].argmax(-1).to(torch.int32))
+        per_scale.append(mixed[:, pos: pos + pns[k] ** 2])
         pos += pns[k] ** 2
     return argmax, per_scale
 
@@ -274,7 +291,10 @@ class SpeculativeEngine:
     ``seed``: an int for the whole batch or one per request (as in
     ``engine.decode``). Acceptance is batch-global (the match rate of a
     scale is taken over the whole batch), so in this mode a request's
-    tokens may depend on its batch companions.
+    tokens may depend on its batch companions. ``mesh``: the registered
+    mesh the engine's parameters are cut for (``parallel.mesh.shard_tree``);
+    each rank is handed the whole batch and returns its own rows' f_hat
+    (and ids), or the whole batch's with ``gather``.
     """
 
     CACHE_POOL_MAX = 2
@@ -283,10 +303,9 @@ class SpeculativeEngine:
                  target_cfg: VARConfig, vae_params, draft_params,
                  target_params, dtype=torch.bfloat16, kv_mode: str = "bf16",
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "speculative decoding on a mesh is not ported "
-                "(ROADMAP Queue 1 item 13)")
+        if mesh is not None and mesh is not get_tp_mesh():
+            raise ValueError("mesh: pass the mesh registered with "
+                             "ops.partition.set_tp_mesh")
         if draft_cfg.patch_nums != target_cfg.patch_nums:
             raise ValueError("draft and target must share the scale schedule")
         if kv_mode not in ("bf16", "f32", "int8"):
@@ -299,6 +318,7 @@ class SpeculativeEngine:
         self.quant_params = vae_params["quant"]
         self.dtype = dtype
         self.kv_mode = kv_mode
+        self.mesh = mesh
         self.num_scales = len(draft_cfg.patch_nums)
         # per-batch-size (draft, target) caches, reused across calls (a
         # server calls once per batch): every scale writes its rows before
@@ -316,7 +336,8 @@ class SpeculativeEngine:
             self._cache_pool.pop(next(iter(self._cache_pool)))
 
     def _new_cache(self, cfg: VARConfig, batch2: int):
-        """A fresh KV cache of the engine's kv_mode for ``batch2`` rows."""
+        """A fresh KV cache of the engine's kv_mode for ``batch2`` rows of
+        the whole batch (this rank's part under a mesh)."""
         if self.kv_mode == "int8":
             return QuantizedKVCache.create(cfg, batch2, device=self.device)
         return KVCache.create(
@@ -331,6 +352,8 @@ class SpeculativeEngine:
         return state, sos, lvl_pos, M.precompute_modulations(cfg, params, sos)
 
     def _streams(self, label_B, seed: Seeds):
+        """The whole batch's labels and draft/target seed streams, as
+        ``init_decode`` takes them."""
         labels = torch.as_tensor(label_B, dtype=torch.long, device=self.device)
         req = request_seeds(seed, labels.shape[0], self.device)
         return labels, fold_seeds(req, DRAFT_STREAM), fold_seeds(req, TARGET_STREAM)
@@ -343,13 +366,14 @@ class SpeculativeEngine:
                              spec: SpeculativeConfig = SpeculativeConfig(),
                              samp: SamplingConfig = SamplingConfig(),
                              resample_on_reject: bool = False,
-                             return_ids: bool = False):
+                             return_ids: bool = False, gather: bool = False):
         """Batched draft-gamma / verify loop. Returns (f_hat, stats), and
         the committed ids (B, L) with ``return_ids``."""
         stats = SpecStats()
         S = self.num_scales
         labels, dseeds, tseeds = self._streams(label_B, seed)
         B = labels.shape[0]
+        rows = data_rows(B)
         d_cache, t_cache = self._cache_pool.pop(B, (None, None))
         if d_cache is None:
             d_cache = self._new_cache(self.draft_cfg, 2 * B)
@@ -365,6 +389,7 @@ class SpeculativeEngine:
             g = min(gamma, S - stage)
             # 1. draft g scales; a retry after total rejection draws anew
             seeds = dseeds if attempt == 0 else fold_seeds(dseeds, 1000 + attempt)
+            seeds = seeds[rows]  # the whole batch's streams, this rank's rows
             d_ids, d_ckpts = _draft_window(
                 self.draft_cfg, self.vae_cfg, self.draft_params,
                 self.quant_params, stage, g,
@@ -379,12 +404,19 @@ class SpeculativeEngine:
                 t_lvl, hub, samp, self.dtype, t_mods)
             stats.target_calls += 1
 
-            # 3. per-scale top-1 match rates, cascade reject (one sync)
+            # 3. per-scale top-1 match rates, cascade reject (one sync):
+            # the batch's match counts (summed over the data ranks) over
+            # its token count
             if spec.force_accept_all:
                 rates = [1.0] * g
             else:
-                rates = torch.stack([(d == t).float().mean()
-                                     for d, t in zip(d_ids, t_argmax)]).tolist()
+                counts = reduce_data(torch.stack([
+                    (d == t).sum(dtype=torch.int32)
+                    for d, t in zip(d_ids, t_argmax)]))
+                n = torch.tensor([B * self.target_cfg.patch_nums[k] ** 2
+                                  for k in range(stage, stage + g)],
+                                 dtype=torch.float32, device=counts.device)
+                rates = (counts.float() / n).tolist()
             stats.match_rates.extend(rates)
             accept = 0
             for r in rates:
@@ -408,7 +440,7 @@ class SpeculativeEngine:
             if resample_on_reject and stage < S:
                 # the target's own sample for the first rejected scale:
                 # progress with target-quality tokens every round
-                rs = fold_seeds(fold_seeds(tseeds, stage), attempt)
+                rs = fold_seeds(fold_seeds(tseeds, stage), attempt)[rows]
                 d_state, ids = _sample_scale(
                     self.target_cfg, self.vae_cfg, self.quant_params, stage,
                     t_logits[accept], dataclasses.replace(d_state, seeds=rs),
@@ -438,9 +470,11 @@ class SpeculativeEngine:
                 attempt += 1
 
         self._pool_put(B, (d_cache, t_cache))
+        f_hat = gather_data(d_state.f_hat) if gather else d_state.f_hat
         if return_ids:
-            return d_state.f_hat, stats, torch.cat(ids_by_scale, dim=1)
-        return d_state.f_hat, stats
+            ids = torch.cat(ids_by_scale, dim=1)
+            return f_hat, stats, gather_data(ids) if gather else ids
+        return f_hat, stats
 
     @torch.inference_mode()
     @full_f32()

@@ -8,6 +8,17 @@ per-layer tensors stacked on a leading ``depth`` axis, linear weights as
 loop over layers. Casts follow the JAX package: LayerNorm statistics in
 f32, AdaLN modulations in f32 cast to the activation dtype, the head
 (AdaLN-before-head + classifier) in f32.
+
+Under a mesh with a model split (``ops.partition.set_tp_mesh``) the tree is
+this rank's shard (``parallel.mesh.shard_tree``) and each rank runs its
+local heads and local FFN hidden: qkv and fc1 by output column, proj and
+fc2 by input row with one all-reduce (sum) each, their biases added once
+after it; AdaLN's 6C columns are all-gathered once per generation, and
+the head's vocab columns stay split (``get_logits``). Values that every
+model rank holds (h, the modulations) stay bit-identical across ranks:
+they come from collectives that hand every rank the same bits. A
+quantized amax over a split axis (the INT8 KV scales, the W8A8
+activations of proj and fc2) is all-reduced (max) before the division.
 """
 
 from __future__ import annotations
@@ -26,12 +37,15 @@ from sdvar_tpu_torch.ops.attention import (
     attention_cache_write,
     use_cache_kernel,
 )
-from sdvar_tpu_torch.ops.kernels.quantize import act_quantize
+from sdvar_tpu_torch.ops.partition import gather_model, model_split
 from sdvar_tpu_torch.ops.quantization import (
     QuantizedKVCache,
     W8A8Linear,
     layer_slice,
     linear_blc,
+    linear_rows,
+    local_kv_shape,
+    quantize_activation,
     quantize_tokens,
     resolve_weight,
     w8a8_prequant_matmul,
@@ -51,6 +65,8 @@ class KVCache:
     Each scale writes its new keys/values IN PLACE at [layer, :, begin:end)
     (the JAX version returns an updated functional copy); rows past
     ``kv_len`` are never read, so a cache can be reused across decodes.
+    Under a mesh ``create`` takes the whole batch and makes this rank's
+    part: (depth, B/data, L, C/model).
     """
 
     k: torch.Tensor
@@ -60,7 +76,8 @@ class KVCache:
     def create(cfg: VARConfig, batch: int, dtype=torch.bfloat16,
                device="cuda") -> "KVCache":
         dev = resolve_device(device)
-        shape = (cfg.depth, batch, cfg.L, cfg.num_heads * cfg.head_dim)
+        rows, C = local_kv_shape(cfg, batch)
+        shape = (cfg.depth, rows, cfg.L, C)
         return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                        torch.zeros(shape, dtype=dtype, device=dev))
 
@@ -160,11 +177,12 @@ def _l2norm_heads(x: torch.Tensor, rmul: Optional[torch.Tensor] = None
 def cond_six(cfg: VARConfig, params: Params, cond_BD: torch.Tensor
              ) -> torch.Tensor:
     """Shared part of the AdaLN conditioning, f32: silu(cond) (B, D), or,
-    with shared AdaLN, the (B, 1, 6, C) shared projection."""
+    with shared AdaLN, the (B, 1, 6, C) shared projection (its 6C columns
+    all-gathered under a model split)."""
     c = F.silu(cond_BD.float())
     if cfg.shared_aln:
         sal = params["shared_ada_lin"]
-        g = c @ sal["w"].float() + sal["b"]
+        g = gather_model(c @ sal["w"].float() + sal["b"])
         return g.reshape(-1, 1, 6, cfg.embed_dim)
     return c
 
@@ -172,18 +190,25 @@ def cond_six(cfg: VARConfig, params: Params, cond_BD: torch.Tensor
 def precompute_modulations(cfg: VARConfig, params: Params,
                            cond_BD: torch.Tensor) -> torch.Tensor:
     """All-layer AdaLN modulations (depth, B, 6, C) f32, computed once per
-    generation (they depend on the class conditioning only)."""
+    generation (they depend on the class conditioning only); under a model
+    split each rank computes its 6C columns and one all-gather joins
+    them."""
     C = cfg.embed_dim
     cond_pre = cond_six(cfg, params, cond_BD)
     blocks = params["blocks"]
     if cfg.shared_aln:
         return cond_pre[None, :, 0] + blocks["ada_gss"][:, :1].float()
     w_all = blocks["ada_lin_w"]  # a dequantised layer at a time when INT8
-    return torch.stack([
-        (cond_pre @ resolve_weight(layer_slice(w_all, li), torch.float32)
-         + b).reshape(-1, 6, C)
+    # summed in f64 and rounded once to f32, so that a column's bits do not
+    # depend on how many columns or rows the call computes: cuBLAS picks
+    # its f32 kernel, and with it the summation order, by shape, and a
+    # model rank computes only its share of the columns
+    c64 = cond_pre.double()
+    six = torch.stack([
+        (c64 @ resolve_weight(layer_slice(w_all, li), torch.float64)).float() + b
         for li, b in enumerate(blocks["ada_lin_b"])
     ])
+    return gather_model(six).reshape(cfg.depth, -1, 6, C)
 
 
 def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
@@ -199,8 +224,14 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
     call does the write and the attention, for every cache the decode
     makes (bf16; f32 under an f32 or bf16 model; int8); any other pairing
     of cache and model dtype raises."""
-    B, L, C = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
+    B, L, _ = x.shape
+    tp, hd = model_split(), cfg.head_dim
+    H = cfg.num_heads // tp  # this rank's heads
+    C = H * hd
+    if layer["q_bias"].shape[-1] != C:
+        raise ValueError(f"q_bias has {layer['q_bias'].shape[-1]} columns, "
+                         f"the mesh's model={tp} needs {C}: cut the "
+                         f"parameters with parallel.mesh.shard_tree")
     qkv_bias = torch.cat([layer["q_bias"], torch.zeros_like(layer["q_bias"]),
                           layer["v_bias"]]).to(x.dtype)
     qkv = linear_blc(x, layer["qkv_w"], x.dtype) + qkv_bias
@@ -220,8 +251,7 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
         # per-token scales, a float cache in the compute dtype
         new_scales = cache_scales = None
         if isinstance(cache, QuantizedKVCache):
-            (k, ks), (v, vs) = (quantize_tokens(t.reshape(B, L, C))
-                                for t in (k, v))
+            (k, ks), (v, vs) = _quantize_kv(k, v, B, L, C, tp > 1)
             k, v = k.view(B, L, H, hd), v.view(B, L, H, hd)
             new_scales, cache_scales = (ks, vs), (cache.k_s, cache.v_s)
         out = attention_cache_write(q, k, v, cache.k, cache.v, li,
@@ -232,9 +262,9 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
         if cache is not None:
             end = cache_begin + L
             if isinstance(cache, QuantizedKVCache):
-                for vals, scales, new in ((cache.k, cache.k_s, k),
-                                          (cache.v, cache.v_s, v)):
-                    nq, ns = quantize_tokens(new.reshape(B, L, C))
+                for vals, scales, (nq, ns) in zip(
+                        (cache.k, cache.v), (cache.k_s, cache.v_s),
+                        _quantize_kv(k, v, B, L, C, tp > 1)):
                     vals[li, :, cache_begin:end] = nq
                     scales[li, :, cache_begin:end] = ns
                 kv_scales = (cache.k_s[li, :, :kv_len],
@@ -248,22 +278,37 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
                 k, v = k.to(x.dtype), v.to(x.dtype)
         out = attention(q, k, v, attn_bias, scale, kv_scales=kv_scales)
     out = out.reshape(B, L, C)
-    return linear_blc(out, layer["proj_w"], x.dtype) + layer["proj_b"].to(x.dtype)
+    return linear_rows(out, layer["proj_w"], x.dtype) + layer["proj_b"].to(x.dtype)
+
+
+def _quantize_kv(k, v, B, L, C, sharded):
+    """The new tokens' int8 keys and values with their per-token scales,
+    ((kq, ks), (vq, vs)); ``sharded``: this rank holds C of each token's
+    merged heads, and one all-reduce (max) of both amax planes gives every
+    rank the whole token's scale."""
+    if not sharded:
+        return tuple(quantize_tokens(t.reshape(B, L, C)) for t in (k, v))
+    q, s = quantize_tokens(torch.stack([k.reshape(B, L, C),
+                                        v.reshape(B, L, C)]), sharded=True)
+    return (q[0], s[0]), (q[1], s[1])
 
 
 def _ffn(layer: Dict, x: torch.Tensor) -> torch.Tensor:
     """MLP with tanh-GELU. A W8A8 fc2 takes the fused route: fc1, then
     bias + GELU (f32) + per-token int8 quantization in one pass, then the
-    exact s8 x s8 -> s32 product."""
-    fc2 = layer["fc2_w"]
+    exact s8 x s8 -> s32 product. Under a model split fc1's hidden columns
+    and fc2's rows are this rank's: the quantization takes the whole row's
+    scale and fc2 sums its partial products over the model ranks."""
+    fc2, sharded = layer["fc2_w"], model_split() > 1
     if isinstance(fc2, W8A8Linear):
         h = linear_blc(x, layer["fc1_w"], x.dtype)  # bias goes into the pass
-        hq, hs = act_quantize(h, layer["fc1_b"], gelu=True)
-        return w8a8_prequant_matmul(hq, hs, fc2, x.dtype) \
+        hq, hs = quantize_activation(h, layer["fc1_b"], gelu=True,
+                                     sharded=sharded)
+        return w8a8_prequant_matmul(hq, hs, fc2, x.dtype, sharded=sharded) \
             + layer["fc2_b"].to(x.dtype)
     h = linear_blc(x, layer["fc1_w"], x.dtype) + layer["fc1_b"].to(x.dtype)
     h = F.gelu(h, approximate="tanh")
-    return linear_blc(h, fc2, x.dtype) + layer["fc2_b"].to(x.dtype)
+    return linear_rows(h, fc2, x.dtype) + layer["fc2_b"].to(x.dtype)
 
 
 def apply_transformer(
@@ -298,7 +343,10 @@ def apply_transformer(
 
 def get_logits(cfg: VARConfig, params: Params, h: torch.Tensor,
                cond_BD: torch.Tensor) -> torch.Tensor:
-    """AdaLN-before-head + classifier, f32 throughout."""
+    """AdaLN-before-head + classifier, f32 throughout. Under a model split
+    the logits are this rank's vocab columns: the sampler gathers them
+    (``ops.partition.sharded_fused_sample``), as does an argmax over the
+    vocab (``gather_model``)."""
     C = cfg.embed_dim
     hn = params["head_nm"]
     ss = F.silu(cond_BD.float()) @ hn["w"].float() + hn["b"]

@@ -114,9 +114,12 @@ def conv2d_nhwc_w8a8(p, x: torch.Tensor) -> torch.Tensor:
     weight scales, one dynamic activation scale for the whole tensor, the
     exact int8 convolution; (B, H, W, O) in x's dtype."""
     wh = p["w"].permute(2, 3, 1, 0).float()  # OIHW -> HWIO
-    ws = torch.clamp(wh.abs().amax(dim=(0, 1, 2)) / 127.0, min=1e-12)
+    wa = wh.abs().amax(dim=(0, 1, 2))
+    # divisions by a device tensor: the IEEE quotient on either device
+    ws = torch.clamp(wa / wa.new_full((), 127.0), min=1e-12)
     wq = torch.round(wh / ws).to(torch.int8)
     xf = x.float()
-    xs = torch.clamp(xf.abs().max() / 127.0, min=1e-12)
+    xa = xf.abs().max()
+    xs = torch.clamp(xa / xa.new_full((), 127.0), min=1e-12)
     xq = torch.round(xf / xs).to(torch.int8)
     return conv3x3_s8(xq, wq, ws * xs, p["b"], out_dtype=x.dtype)

@@ -45,7 +45,8 @@ import torch
 
 from sdvar_tpu_torch.config import VARConfig
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import int8_matmul_blc
-from sdvar_tpu_torch.ops.kernels.quantize import act_quantize
+from sdvar_tpu_torch.ops.kernels.quantize import act_quantize, act_scale
+from sdvar_tpu_torch.ops.partition import data_rows, model_split, reduce_model
 from sdvar_tpu_torch.utils.device import resolve_device
 
 
@@ -88,11 +89,20 @@ WEIGHT_KEYS = ("qkv_w", "proj_w", "fc1_w", "fc2_w", "ada_lin_w")
 W8A8_KEYS = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
 
 
+def _on(t: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a 0-dim tensor of t's dtype on t's device. Dividing by
+    it gives the IEEE quotient on either device: on a CUDA tensor PyTorch
+    turns division by a host number into a product with its reciprocal,
+    whose last bit can differ, and a value of exactly amax / 2 (a rounding
+    tie, common in bf16 data) then rounds the other way."""
+    return t.new_full((), value)
+
+
 def quantize_weight(w: torch.Tensor, axis: int = -2) -> QuantizedLinear:
     """Symmetric per-output-channel int8: amax over the INPUT axis, round
     half to even, clip at +-127."""
     amax = w.abs().amax(dim=axis, keepdim=True)
-    scale = (amax / 127.0).float()
+    scale = (amax / _on(amax, 127.0)).float()
     q = torch.clamp(torch.round(w / torch.clamp(scale, min=1e-12)), -127, 127)
     return QuantizedLinear(q.to(torch.int8), scale.squeeze(axis))
 
@@ -103,7 +113,7 @@ def quantize_weight_fp8(w: torch.Tensor, axis: int = -2) -> FP8Linear:
     weight's dtype (a bf16 division for a bf16 weight), then widened to
     f32, and the division by it promotes to f32, as in the JAX package."""
     amax = w.abs().amax(dim=axis, keepdim=True)
-    scale = (amax / FP8_MAX).float()
+    scale = (amax / _on(amax, FP8_MAX)).float()
     q = (w / torch.clamp(scale, min=1e-12)).to(torch.float8_e4m3fn)
     return FP8Linear(q, scale.squeeze(axis))
 
@@ -170,11 +180,24 @@ def resolve_weight(w, dtype) -> torch.Tensor:
     return w.to(dtype)
 
 
-def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activation(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                        gelu: bool = False, sharded: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-token int8: (..., K) -> (int8 values, f32
     (..., 1) scales), scale max(amax / 127, 1e-8); |x| / scale <= 127 by
-    construction, so no clip."""
-    return act_quantize(x, None, gelu=False)
+    construction, so no clip. ``bias`` and ``gelu`` are applied first, in
+    the same pass (the fused route of ``models.var._ffn``).
+
+    ``sharded``: x holds this rank's columns of each row, split over
+    "model". The scale is then the whole row's: a scale-only pass gives
+    the rank's scales, they are all-reduced (max), and the quantizing pass
+    divides by them. Division by 127 is monotone and the floor commutes
+    with the max, so that is the unsharded scale, and the int8 values are
+    the unsharded ones."""
+    if not sharded:
+        return act_quantize(x, bias, gelu=gelu)
+    xs = reduce_model(act_scale(x, bias, gelu=gelu), "max")
+    return act_quantize(x, bias, gelu=gelu, scale=xs)
 
 
 def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -200,12 +223,17 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def w8a8_prequant_matmul(xq: torch.Tensor, xs: torch.Tensor, qw: W8A8Linear,
-                         dtype) -> torch.Tensor:
+                         dtype, sharded: bool = False) -> torch.Tensor:
     """int8 (..., K) rows + (..., 1) f32 scales @ int8 (K, N): exact s32
     sum, then ``acc * x_scale * w_scale`` in f32, cast to ``dtype`` (the
-    int32 sum converts to f32 inside the first product)."""
+    int32 sum converts to f32 inside the first product). ``sharded``: K is
+    split over "model" (this rank's rows of the weight); the int32 partial
+    sums are all-reduced before the epilogue, so the sum stays exact and
+    the result is the unsharded bits."""
     K = xq.shape[-1]
     acc = _int_mm(xq.reshape(-1, K), qw.q).view(*xq.shape[:-1], -1)
+    if sharded:
+        acc = reduce_model(acc)
     return (acc * xs).mul_(qw.scale).to(dtype)
 
 
@@ -226,6 +254,20 @@ def linear_blc(x_blc: torch.Tensor, w, dtype) -> torch.Tensor:
     if isinstance(w, QuantizedLinear):
         return int8_matmul_blc(x_blc.to(dtype), w.q, w.scale)
     return torch.matmul(x_blc.to(dtype), resolve_weight(w, dtype))
+
+
+def linear_rows(x_blc: torch.Tensor, w, dtype) -> torch.Tensor:
+    """``linear_blc`` for a weight whose input rows split over "model"
+    (proj, fc2): x holds this rank's columns. Each rank's partial product
+    is summed over the model ranks: a ``W8A8Linear`` sums its exact int32
+    partials before the scale epilogue (the unsharded bits), any other
+    weight its partials in ``dtype``. Without a model split, ``linear_blc``."""
+    if model_split() == 1:
+        return linear_blc(x_blc, w, dtype)
+    if isinstance(w, W8A8Linear):
+        xq, xs = quantize_activation(x_blc, sharded=True)
+        return w8a8_prequant_matmul(xq, xs, w, dtype, sharded=True)
+    return reduce_model(linear_blc(x_blc, w, dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -251,10 +293,12 @@ class QuantizedKVCache:
     @staticmethod
     def create(cfg: VARConfig, batch: int, max_len: Optional[int] = None,
                device="cuda") -> "QuantizedKVCache":
+        """``batch`` rows of the whole batch; under a mesh, this rank's
+        part (``local_kv_shape``)."""
         dev = resolve_device(device)
         L = max_len or cfg.L
-        C = cfg.num_heads * cfg.head_dim
-        vals = (cfg.depth, batch, L, C)
+        rows, C = local_kv_shape(cfg, batch)
+        vals = (cfg.depth, rows, L, C)
         return QuantizedKVCache(
             k=torch.zeros(vals, dtype=torch.int8, device=dev),
             v=torch.zeros(vals, dtype=torch.int8, device=dev),
@@ -267,11 +311,30 @@ class QuantizedKVCache:
         return self.k.shape[2]
 
 
-def quantize_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def local_kv_shape(cfg: VARConfig, batch: int) -> Tuple[int, int]:
+    """(rows, merged head width) of this rank's KV cache for a batch of
+    ``batch`` rows: rows over "data", heads over "model" (the whole cache
+    without a mesh)."""
+    rows = data_rows(batch, "KV cache batch")
+    tp = model_split()
+    if cfg.num_heads % tp:
+        raise ValueError(f"heads {cfg.num_heads} do not divide over "
+                         f"model={tp}")
+    return rows.stop - rows.start, cfg.num_heads // tp * cfg.head_dim
+
+
+def quantize_tokens(x: torch.Tensor, sharded: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., C) -> int8 values + (...) f32 per-token scales (amax over C,
-    floor 1e-12, clip at +-127)."""
+    floor 1e-12, clip at +-127). ``sharded``: x holds this rank's heads of
+    each token, split over "model"; the amax is all-reduced (max) over the
+    model ranks before the division, so scales and values are the
+    unsharded ones."""
     x32 = x.float()
-    scale = torch.clamp(x32.abs().amax(dim=-1) / 127.0, min=1e-12)
+    amax = x32.abs().amax(dim=-1)
+    if sharded:
+        amax = reduce_model(amax, "max")
+    scale = torch.clamp(amax / _on(amax, 127.0), min=1e-12)
     q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 

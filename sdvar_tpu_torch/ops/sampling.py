@@ -8,7 +8,12 @@ of the JAX package's ``fold_key(key, si)`` + ``_row_seeds_from_keys``: a
 request's tokens do not depend on its batch slot, nor on how the scale
 loop is driven.
 
-CFG rows use the single-device ``[cond ‖ uncond]`` layout.
+CFG rows use the ``[cond ‖ uncond]`` layout. Under a mesh each data rank
+holds its own requests' rows, ``[cond_r ‖ uncond_r]``: block r of the JAX
+package's shard-local CFG layout, a row permutation that leaves each
+request's bits as they are; a rank computes the whole batch's request
+seeds and takes its slice (``engine/decode.py``), so a request's stream
+hashes its global slot.
 """
 
 from __future__ import annotations
@@ -17,12 +22,8 @@ from typing import Sequence, Union
 
 import torch
 
-from sdvar_tpu_torch.ops.kernels.sampling import (
-    fmix32,
-    mul32,
-    sample_kernel,
-    sample_plain,
-)
+from sdvar_tpu_torch.ops.kernels.sampling import fmix32, mul32
+from sdvar_tpu_torch.ops.partition import sharded_fused_sample
 
 _MASK32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -65,22 +66,17 @@ def row_seeds(req_seeds: torch.Tensor, si: int, l: int) -> torch.Tensor:
     return torch.where(rows >= 2 ** 31, rows - 2 ** 32, rows).to(torch.int32)
 
 
-def fused_sample(logits: torch.Tensor, seeds: torch.Tensor,
-                 top_k: int = 0, top_p: float = 0.0) -> torch.Tensor:
-    """(M, V) f32 logits -> (M,) int32 ids through the fused sampler: the
-    Triton kernel for CUDA tensors, its plain version for CPU tensors."""
-    fn = sample_plain if logits.device.type == "cpu" else sample_kernel
-    return fn(logits, seeds, top_k, top_p)
-
-
 def sample_with_top_k_top_p(logits_BlV: torch.Tensor, seeds: torch.Tensor,
                             top_k: int = 0, top_p: float = 0.0) -> torch.Tensor:
     """Sample (B, l) int32 ids from (B, l, V) logits with top-k / top-p
     filtering and Gumbel-max; ``seeds`` holds one int32 seed per row
-    (B*l,), see :func:`row_seeds`."""
+    (B*l,), see :func:`row_seeds`. Through the fused sampler
+    (``ops.partition.sharded_fused_sample``: the Triton kernel for CUDA
+    tensors, its plain version for CPU tensors); under a mesh the logits
+    are this rank's rows and vocab columns, gathered over "model" first."""
     B, l, V = logits_BlV.shape
-    ids = fused_sample(logits_BlV.float().reshape(B * l, V), seeds, top_k,
-                       top_p)
+    ids = sharded_fused_sample(logits_BlV.float().reshape(B * l, V), seeds,
+                               top_k, top_p)
     return ids.reshape(B, l)
 
 

@@ -19,8 +19,14 @@ Modes (VAR-d``depth`` 256px, random weights from fixed seeds, bucket =
   spec-accept   the same with ``force_accept_all``: the ceiling
   pixq          W8A8 + INT8 KV with the W8A8 pixel decoder calibrated on two
                 B=8 decodes (alpha 0.75, min_w 256)
-  mesh          raises NotImplementedError, as the server's mesh mode does
+  mesh          W8A8 + INT8 KV on a MeshConfig(data=1, model=world size)
+                mesh server: 1x1 in one process, as the JAX tool is on one
+                chip; 1x2 under ``torchrun --nproc_per_node 2`` (every rank
+                runs the same requests and prints its own figures)
 A "-u8" suffix on any mode delivers uint8 images (a quarter of the bytes).
+
+    torchrun --nproc_per_node 2 -m sdvar_tpu_torch.tools.bench_serving \
+        30 32 16 mesh-u8
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from sdvar_tpu_torch.config import (
+    MeshConfig,
     SamplingConfig,
     SpeculativeConfig,
     VARConfig,
@@ -42,6 +49,7 @@ from sdvar_tpu_torch.engine.serving import GenerationServer
 from sdvar_tpu_torch.models.var import init_var_params
 from sdvar_tpu_torch.models.vqvae import calibrate_decoder_w8a8, init_vqvae_params
 from sdvar_tpu_torch.ops.quantization import quantize_var_params
+from sdvar_tpu_torch.parallel import distributed
 
 MODES = ("bf16", "w8a8-int8kv", "spec", "spec-accept", "pixq", "mesh")
 SAMP = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
@@ -57,9 +65,6 @@ def run(depth: int = 30, n_req: int = 96, max_batch: int = 16,
         deliver, mode = "u8", mode[:-3]
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} ({' | '.join(MODES)}, each with -u8)")
-    if mode == "mesh":
-        raise NotImplementedError(
-            "mesh serving is not ported (ROADMAP Queue 1 item 13)")
     var_cfg, vae_cfg = VARConfig(depth=depth), VQVAEConfig()
     print(f"[serve] VAR-d{depth} {mode} deliver={deliver} max_batch={max_batch}",
           flush=True)
@@ -77,6 +82,9 @@ def run(depth: int = 30, n_req: int = 96, max_batch: int = 16,
                 draft_cfg, seed=7, device=device, dtype=torch.bfloat16),
                 mode="w8a8"),
             spec=SpeculativeConfig(gamma=3, force_accept_all=mode == "spec-accept"))
+    elif mode == "mesh":
+        extra = dict(mesh_cfg=MeshConfig(
+            data=1, model=distributed.get_world_size()))
     elif mode == "pixq":
         cal = [decode_all_scales(var_cfg, vae_cfg, params, vae["quant"],
                                  torch.arange(8) + 100 * i, 40 + i, SAMP,
@@ -139,7 +147,13 @@ def run(depth: int = 30, n_req: int = 96, max_batch: int = 16,
 
 if __name__ == "__main__":
     argv = sys.argv[1:]
-    run(int(argv[0]) if len(argv) > 0 else 30,
-        int(argv[1]) if len(argv) > 1 else 96,
-        int(argv[2]) if len(argv) > 2 else 16,
-        argv[3] if len(argv) > 3 else "w8a8-int8kv")
+    distributed.initialize()  # a no-op outside torchrun
+    try:
+        run(int(argv[0]) if len(argv) > 0 else 30,
+            int(argv[1]) if len(argv) > 1 else 96,
+            int(argv[2]) if len(argv) > 2 else 16,
+            argv[3] if len(argv) > 3 else "w8a8-int8kv",
+            device=distributed.rank_device() if torch.cuda.is_available()
+            else "cuda")
+    finally:
+        distributed.shutdown()

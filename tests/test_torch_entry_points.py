@@ -256,8 +256,10 @@ def test_bench_serving_runs_on_the_cpu(tiny_configs, mode):
     assert ("spec_target_calls_per_batch" in out) == mode.startswith("spec")
 
 
-def test_bench_serving_mesh_and_unknown_modes_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        bench_serving.run(1, 1, 1, "mesh", device="cpu")
+def test_bench_serving_mesh_and_unknown_modes_raise(tiny_configs):
+    """Mode mesh in one process serves on a 1x1 mesh (the two-rank run is
+    in ``test_torch_mesh.py``); an unknown mode raises."""
+    out = bench_serving.run(1, 3, 2, "mesh", device="cpu")
+    assert out["mode"] == "mesh" and out["requests"] == 3
     with pytest.raises(ValueError, match="mode"):
         bench_serving.run(1, 1, 1, "fp16", device="cpu")

@@ -21,7 +21,12 @@ from sdvar_tpu_torch.ops.kernels.attention import (
 )
 from sdvar_tpu_torch.ops.kernels.conv_s8 import conv3x3_s8_kernel, conv3x3_s8_plain
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import int8_matmul_kernel, int8_matmul_plain
-from sdvar_tpu_torch.ops.kernels.quantize import act_quantize_kernel, act_quantize_plain
+from sdvar_tpu_torch.ops.kernels.quantize import (
+    act_quantize_kernel,
+    act_quantize_plain,
+    act_scale_kernel,
+    act_scale_plain,
+)
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
 from sdvar_tpu_torch.ops.kernels.w8a8_fused import w8a8_fused_kernel, w8a8_fused_plain
 from sdvar_tpu_torch.ops.quantization import k_major, quantize_tokens
@@ -151,6 +156,29 @@ def test_act_quantize_kernel_matches_plain(cuda, dtype, M, K, gelu):
     torch.testing.assert_close(s, sp, rtol=1e-6, atol=0)
     d = (q.int() - qp.int()).abs()
     assert d.max().item() <= 1 and (d != 0).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("M,K,gelu", [(64, 3840, True), (37, 960, False)])
+def test_act_quantize_split_row_modes_match_plain(cuda, M, K, gelu):
+    """The two modes of a row split over ranks: the scales alone, and the
+    int8 values under a given scale (twice each row's own, as the max over
+    ranks may be). Without GELU both are the plain version's bits; with it
+    the scales within 1e-6 relative and |dq| <= 1 on fewer than 1e-3 of the
+    elements, as above."""
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    x = (torch.randn(M, K, device=cuda, generator=g) * 3).to(torch.bfloat16)
+    b = torch.randn(K, device=cuda, generator=g).to(x.dtype) if gelu else None
+    s, sp = act_scale_kernel(x, b, gelu), act_scale_plain(x, b, gelu)
+    given = sp * 2.0
+    q, s_out = act_quantize_kernel(x, b, gelu, scale=given)
+    qp, _ = act_quantize_plain(x, b, gelu, scale=given)
+    assert torch.equal(s_out, given)
+    d = (q.int() - qp.int()).abs()
+    if gelu:
+        torch.testing.assert_close(s, sp, rtol=1e-6, atol=0)
+        assert d.max().item() <= 1 and (d != 0).float().mean().item() < 1e-3
+    else:
+        assert torch.equal(s, sp) and d.max().item() == 0
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])

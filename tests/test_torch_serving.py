@@ -220,7 +220,7 @@ def test_greedy_f32_server_matches_jax(stack, monkeypatch):
 
 
 def test_unported_modes_and_bad_options_raise(stack, sites):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="MeshConfig"):
         _mk(stack, mesh_cfg=object())
     with pytest.raises(ValueError, match="draft_params"):
         _mk(stack, draft_cfg=stack[4])

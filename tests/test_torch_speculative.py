@@ -381,7 +381,7 @@ def test_cache_pool_is_bounded_and_reused(stack):
 
 
 def test_bad_arguments_raise(stack):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="mesh registered"):
         SpeculativeEngine(stack["tq"], stack["tv"], stack["tv"],
                           {"quant": stack["tquant"]}, stack["port"]["draft"],
                           stack["port"]["target"], mesh=object(), device="cpu")
