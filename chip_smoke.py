@@ -80,6 +80,7 @@ from sdvar_tpu_torch.ops.kernels.attention import (
     attention_cache_write_plain,
     attention_kernel,
     attention_plain,
+    attention_plan,
     smem_bytes,
 )
 from sdvar_tpu_torch.ops.masks import verify_window_bias
@@ -165,6 +166,25 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms: the launches are queued behind a
+    spin kernel (about 5 ms), so the card runs them back to back and not at
+    the host's pace, which bounds ``cuda_ms`` for launches of a few tens
+    of microseconds."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -284,10 +304,53 @@ def phase_device_and_build():
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling")):
                 log(f"[build] {src}: {line.strip()}")
-    log("[build] attention shared memory per block: " + ", ".join(
-        f"{str(dt)[6:]} hd={hd}: {smem_bytes(hd, dt)} B"
-        for dt in (torch.bfloat16, torch.float32) for hd in (32, 64, 128)))
+    # the launch geometry is planned in Python: its shared memory must be
+    # what the CUDA source reserves, for every instance
+    sizes = []
+    for q_dt, kv_dt in ((torch.bfloat16, torch.bfloat16),
+                        (torch.bfloat16, torch.int8),
+                        (torch.bfloat16, torch.float32),
+                        (torch.float32, torch.float32)):
+        for hd in (32, 64, 128):
+            plan = attention_plan(2 * B, 256, 680, DEPTH, hd, q_dt, kv_dt)
+            got = smem_bytes(hd, q_dt, kv_dt, plan["stages"])
+            sizes.append(f"q {str(q_dt)[6:]} k/v {str(kv_dt)[6:]} hd={hd}: "
+                         f"{got} B ({plan['stages']} stages)")
+            if got != plan["smem_bytes"]:
+                raise AssertionError(f"attention_plan reserves {plan['smem_bytes']}"
+                                     f" B of shared memory, the source {got}")
+    log("[build] attention dynamic shared memory per block (equal to "
+        "attention_plan's): " + ", ".join(sizes))
     return name
+
+
+def attention_ptxas(kv: str, write: bool, hd: int = 64) -> str:
+    """The -Xptxas -v report (registers, spills) of one bf16-q attention
+    instantiation, from the build log; kv: k/v's type, bf16, int8 or f32."""
+    mangled = {"bf16": "13__nv_bfloat16", "int8": "a", "f32": "f"}[kv]
+    key = f"attention_mma_kernelILi{hd}E{mangled}Lb{int(write)}E"
+    lines = _build.build_log("attention").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and key in line:
+            near = lines[i + 1:i + 4]
+            used = next(x for x in near if "Used" in x).split(":", 1)[1]
+            spill = next(x for x in near if "spill" in x)
+            return f"{used.strip()}; {spill.strip()}"
+    raise AssertionError(f"no ptxas report for {key}")
+
+
+def attention_staging(Bq, Lq, Lk, H, hd, kv_dtype, write=False) -> str:
+    """The K/V bytes one launch's copies stage (attention_plan) beside
+    those the bound counts (each K/V row and int8 scale read once), and
+    the dynamic shared memory of a block."""
+    plan = attention_plan(Bq, Lq, Lk, H, hd, torch.bfloat16, kv_dtype,
+                          write=write)
+    item = {torch.bfloat16: 2, torch.int8: 1, torch.float32: 4}[kv_dtype]
+    counted = Bq * H * hd * 2 * Lk * item + (Bq * Lk * 8 if item == 1 else 0)
+    return (f"K/V bytes staged per launch {plan['kv_bytes_staged']} (the bound "
+            f"counts {counted}), grid {plan['grid']} x {plan['threads']} "
+            f"threads, {plan['stages']} stages, {plan['smem_bytes']} B dynamic "
+            f"shared memory")
 
 
 def phase_kernel_checks():
@@ -1143,16 +1206,20 @@ def phase_kernel_times(launches, errs, smp):
         return (q, cache[0, :, :Lk].view(Bq, Lk, H, hd),
                 cache[1, :, :Lk].view(Bq, Lk, H, hd))
 
-    per_scale, total = [], 0.0
+    per_scale, total, dev_total = [], 0.0, 0.0
     cur = 0
     for pn in (1, 2, 3, 4, 5, 6, 8, 10, 13, 16):
         cur += pn * pn
         q, k, v = att_inputs(pn * pn, cur)
         ms = cuda_ms(lambda: attention_kernel(q, k, v, None, 1.0), 20)
-        per_scale.append(f"{pn * pn}x{cur}:{ms * 1e3:.1f}us")
+        dms = device_ms(lambda: attention_kernel(q, k, v, None, 1.0), 20)
+        per_scale.append(f"{pn * pn}x{cur}:{ms * 1e3:.1f}/{dms * 1e3:.1f}us")
         total += ms * DEPTH
-    log(f"[time] attention kernel per scale (Lq x Lk: us per launch) "
-        f"{' '.join(per_scale)}; x{DEPTH} layers = {total:.2f} ms per decode")
+        dev_total += dms * DEPTH
+    log(f"[time] attention kernel per scale (Lq x Lk: us per launch at the "
+        f"host's pace / queued on the device) {' '.join(per_scale)}; x{DEPTH} "
+        f"layers = {total:.2f} ms per decode at the host's pace, "
+        f"{dev_total:.2f} ms of device time")
 
     q, k, v = att_inputs(256, 680)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1164,7 +1231,9 @@ def phase_kernel_times(launches, errs, smp):
     log(f"[time] attention scale 9 (2B=32 Lq=256 Lk=680 H=30 hd=64 bf16): "
         f"kernel_ms {a_ms:.4f} plain_ms {a_plain:.4f} library_ms "
         f"{a_lib:.4f} (scaled_dot_product_attention) bound_ms {a_bound:.4f} "
-        f"({a_by}) launches/decode {launches['attention'] // N_BATCHES}")
+        f"({a_by}) launches/decode {launches['attention'] // N_BATCHES}; "
+        f"{attention_staging(Bq, 256, 680, H, hd, torch.bfloat16)}; ptxas "
+        f"{attention_ptxas('bf16', False)}")
 
     M, V = B * 256, 4096
     logits = torch.randn(M, V, device=dev, generator=g) * 4
@@ -1186,16 +1255,21 @@ def phase_kernel_times(launches, errs, smp):
 
     # INT8-KV attention: int8 cache slices and their scale planes
     vals, scales = _int8_cache(Bq, Lmax, H * hd, g)
-    per_scale, total8, cur = [], 0.0, 0
+    per_scale, total8, dev_total8, cur = [], 0.0, 0.0, 0
     for pn in PNS:
         cur += pn * pn
         q8 = torch.randn(Bq, pn * pn, H, hd, device=dev, generator=g).to(torch.bfloat16)
         k8, v8, sc8 = _int8_kv(vals, scales, cur, H, hd)
         ms = cuda_ms(lambda: attention_kernel(q8, k8, v8, None, 1.0, kv_scales=sc8), 20)
-        per_scale.append(f"{pn * pn}x{cur}:{ms * 1e3:.1f}us")
+        dms = device_ms(lambda: attention_kernel(q8, k8, v8, None, 1.0,
+                                                 kv_scales=sc8), 20)
+        per_scale.append(f"{pn * pn}x{cur}:{ms * 1e3:.1f}/{dms * 1e3:.1f}us")
         total8 += ms * DEPTH
-    log(f"[time] attention_int8 kernel per scale (Lq x Lk: us per launch) "
-        f"{' '.join(per_scale)}; x{DEPTH} layers = {total8:.2f} ms per decode")
+        dev_total8 += dms * DEPTH
+    log(f"[time] attention_int8 kernel per scale (Lq x Lk: us per launch at "
+        f"the host's pace / queued on the device) {' '.join(per_scale)}; "
+        f"x{DEPTH} layers = {total8:.2f} ms per decode at the host's pace, "
+        f"{dev_total8:.2f} ms of device time")
     k8, v8, sc8 = _int8_kv(vals, scales, 680, H, hd)
     # the library call gets k/v dequantised beforehand, outside the timing
     kd, vd = (dequantize_tokens(t.reshape(Bq, 680, H * hd), s).view(Bq, 680, H, hd)
@@ -1209,7 +1283,9 @@ def phase_kernel_times(launches, errs, smp):
         f"library_ms {i_lib:.4f} (scaled_dot_product_attention on k/v "
         f"dequantised beforehand, the dequant not timed) bound_ms "
         f"{i_bound:.4f} ({i_by}) launches/decode "
-        f"{launches['attention_int8'] // N_BATCHES}")
+        f"{launches['attention_int8'] // N_BATCHES}; "
+        f"{attention_staging(Bq, 256, 680, H, hd, torch.int8)}; ptxas "
+        f"{attention_ptxas('int8', False)}")
 
     M = 2 * B * 256
     x = (torch.randn(M, 7680, device=dev, generator=g) * 3).to(torch.bfloat16)
@@ -1696,7 +1772,9 @@ def phase_cache_kernel_times(launches, int8_launches, errs):
             f"{begin} kv_len={kv_len} H={H} hd={hd} bf16"
             f"{', bias' if with_bias else ''}): kernel_ms {w_ms:.4f} plain_ms "
             f"{w_plain:.4f} library_ms none (no single call); two copies + "
-            f"attention_kernel {u_ms:.4f} ms; bound_ms {w_bound:.4f} ({w_by})")
+            f"attention_kernel {u_ms:.4f} ms; bound_ms {w_bound:.4f} ({w_by}); "
+            f"{attention_staging(Bq, Lq, kv_len, H, hd, torch.bfloat16, True)}; "
+            f"ptxas {attention_ptxas('bf16', True)}")
         if tag == "scale 9":
             sdpa = torch.nn.functional.scaled_dot_product_attention
             k, v, _ = _layer(q, ck, cv, None, kv_len)
@@ -1711,7 +1789,9 @@ def phase_cache_kernel_times(launches, int8_launches, errs):
                 f"layer {li} of the stacked cache, bf16): kernel_ms {c_ms:.4f} "
                 f"plain_ms {c_plain:.4f} library_ms {c_lib:.4f} "
                 f"(scaled_dot_product_attention on the layer's slice) bound_ms "
-                f"{c_bound:.4f} ({c_by}); on no model path (0 launches)")
+                f"{c_bound:.4f} ({c_by}); on no model path (0 launches); "
+                f"{attention_staging(Bq, Lq, kv_len, H, hd, torch.bfloat16)}; "
+                f"ptxas {attention_ptxas('bf16', False)}")
         del q, ck, cv, kn, vn
     q, ck, cv, cs, kn, vn, ns = _cache_case(g, True, 256, 424)
     i_ms = cuda_ms(lambda: attention_cache_write_kernel(
@@ -1719,7 +1799,10 @@ def phase_cache_kernel_times(launches, int8_launches, errs):
     i_bound, i_by = cache_write_bound(2 * B, 256, 424, H, hd, True, False)
     log(f"[time] attention_cache_write int8 scale 9: kernel_ms {i_ms:.4f} "
         f"bound_ms {i_bound:.4f} ({i_by}); launches per W8A8 + INT8-KV decode "
-        f"with the switch on {int8_launches}")
+        f"with the switch on {int8_launches}; "
+        f"{attention_staging(2 * B, 256, 680, H, hd, torch.int8, True)}; "
+        f"ptxas {attention_ptxas('int8', True)}; the f32-cache instances: "
+        f"{attention_ptxas('f32', False)} / {attention_ptxas('f32', True)}")
     del q, ck, cv, cs, kn, vn, ns
     torch.cuda.empty_cache()
     s9 = t["scale 9"]

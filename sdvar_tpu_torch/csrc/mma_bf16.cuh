@@ -1,6 +1,6 @@
-// Device helpers shared by the port's tensor-core kernels (attention.cu,
-// matmul_int8.cu): the bf16 mma.sync tile product and the exact int8 ->
-// bf16 widening of a 16-byte word.
+// Device helpers of the port's mma.sync kernels (matmul_int8.cu): the
+// bf16 mma.sync tile product and the exact int8 -> bf16 widening of a
+// 16-byte word.
 
 #pragma once
 

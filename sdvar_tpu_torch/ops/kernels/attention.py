@@ -26,6 +26,7 @@ layer index.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -71,6 +72,102 @@ def attention_plain(q, k, v, bias: Optional[torch.Tensor], scale: float,
     return o.to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Launch geometry: the kernel's grid, block and shared memory, on any device
+# ---------------------------------------------------------------------------
+
+KEY_TILE = 64        # keys per ring tile
+WG_ROWS = 64         # query rows per warpgroup (bf16 q)
+COPY_BYTES = 16      # one cp.async copy; also the alignment every operand needs
+DEFAULT_STAGES = 3   # ring depth (2..4)
+DEFAULT_WARPGROUPS = 2  # the most a block takes unless asked for more
+MAX_SMEM = 232448    # dynamic shared memory one block may take on Hopper
+_ITEM = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+
+
+def check_strides(name: str, strides, itemsize: int, ptr: int = 0) -> None:
+    """Refuse an operand whose base or batch/token strides (in elements)
+    are not 16-byte aligned: every copy the kernel issues is 16 bytes."""
+    vec = COPY_BYTES // itemsize
+    if ptr % COPY_BYTES or any(st % vec for st in strides):
+        raise ValueError(f"attention_kernel: {name} must be 16-byte aligned "
+                         f"with strides a multiple of {vec}")
+
+
+def attention_plan(B: int, Lq: int, Lk: int, H: int, hd: int,
+                   q_dtype: torch.dtype, kv_dtype: torch.dtype, *,
+                   write: bool = False, stages: Optional[int] = None,
+                   max_warpgroups: Optional[int] = None, q_strides=(),
+                   kv_strides=()) -> dict:
+    """The launch geometry of ``csrc/attention.cu`` for these shapes,
+    strides and dtypes, as the C entry points derive it from the
+    warpgroups and stages passed in.
+
+    bf16 q: blocks of up to ``max_warpgroups`` warpgroups (64 query rows
+    each; default 2, at most 4, 2 at hd = 128), as few blocks per (b, h) as
+    that allows, the warpgroups spread evenly over them: by default K/V are
+    staged once per (b, h) for Lq <= 128 and twice for the decode's last
+    scales (two 2-warpgroup blocks share an SM, and measured faster than
+    one of 4; the second read comes from L2); a ring of ``stages`` (2-4,
+    default 3) K/V tiles of (64 keys x hd) in k/v's dtype, plus one pair
+    of bf16 tiles for the conversion pass of an int8 or f32 ring. f32 q:
+    the scalar kernel's 64-row blocks of 256 threads. ``kv_bytes_staged``
+    counts what every block's copies read (K/V rows and int8 scales;
+    ``write``: the Lq new rows in place of the cache's). Raises ValueError
+    with the wrapper's message on what the kernel does not take."""
+    if q_dtype not in _DTYPES:
+        raise ValueError(f"attention_kernel: dtype {q_dtype} not supported")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"attention_kernel: head dim {hd} not in {_HEAD_DIMS}")
+    if (q_dtype, kv_dtype) not in _CACHE_PAIRS:
+        raise ValueError(f"attention_kernel: a {kv_dtype} k/v under a "
+                         f"{q_dtype} q is not taken")
+    if min(B, Lq, Lk, H) <= 0 or max(B, H) > 65535:
+        raise ValueError(f"attention_kernel: no launch for B={B} Lq={Lq} "
+                         f"Lk={Lk} H={H}")
+    check_strides("q", q_strides, _ITEM[q_dtype])
+    check_strides("k/v", kv_strides, _ITEM[kv_dtype])
+    int8 = kv_dtype == torch.int8
+    new_item = 1 if int8 else _ITEM[q_dtype]
+    n_new = Lq if write else 0
+    row_bytes = (2 * hd * (_ITEM[kv_dtype] * (Lk - n_new) + new_item * n_new)
+                 + (8 * Lk if int8 else 0))
+    if q_dtype == torch.float32:
+        grid_x = -(-Lq // 64)
+        return {"grid": (grid_x, H, B), "threads": 256, "warpgroups": 0,
+                "stages": 0, "smem_bytes": 4 * (2 * hd * 68 + 64 * hd + 64 * 68
+                                                 + 128),
+                "box": (KEY_TILE, hd),
+                "kv_bytes_staged": grid_x * B * H * row_bytes}
+    cap = max_warpgroups or DEFAULT_WARPGROUPS
+    if not 1 <= cap <= (2 if hd == 128 else 4):
+        raise ValueError(f"attention_kernel: {cap} warpgroups a block not "
+                         f"taken at hd={hd}")
+    wg_tiles = -(-Lq // WG_ROWS)
+    wg = -(-wg_tiles // -(-wg_tiles // cap))
+    grid_x = -(-Lq // (WG_ROWS * wg))
+    # a stage holds K and V in k/v's dtype (int8: and their scales); int8
+    # and f32 add one pair of converted bf16 tiles; ring and tiles at
+    # 1024-byte boundaries (the swizzle's period), with 1024 bytes to align
+    # the base
+    stage = 2 * KEY_TILE * hd * _ITEM[kv_dtype] + (2 * KEY_TILE * 4 if int8 else 0)
+    conv = 0 if kv_dtype == torch.bfloat16 else 2 * KEY_TILE * hd * 2
+    smem = lambda n: 1024 + -(-n * stage // 1024) * 1024 + conv
+    if stages is None:
+        stages = DEFAULT_STAGES
+    if not 2 <= stages <= 4 or smem(stages) > MAX_SMEM:
+        raise ValueError(f"attention_kernel: a ring of {stages} stages of "
+                         f"{stage} bytes does not fit")
+    return {"grid": (grid_x, H, B), "threads": 128 * wg, "warpgroups": wg,
+            "stages": stages, "smem_bytes": smem(stages),
+            "box": (KEY_TILE, hd),
+            "kv_bytes_staged": grid_x * B * H * row_bytes}
+
+
+# the wrappers' plans, once per shape: the plan is a pure function
+_plan = functools.lru_cache(maxsize=1024)(attention_plan)
+
+
 def _lib(int8: bool):
     lib = _build.load("attention")
     fn = lib.sdvar_attention_int8 if int8 else lib.sdvar_attention
@@ -78,16 +175,18 @@ def _lib(int8: bool):
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ptrs, strides = (7, 8) if int8 else (5, 6)
         fn.argtypes = ([P] * ptrs + [I] * 6 + [LL] * strides
-                       + [ctypes.c_float, P])
+                       + [ctypes.c_float, P, I, I])
         fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(hd: int, dtype: torch.dtype) -> int:
-    """Shared memory of one kernel block for head dim ``hd`` and ``dtype``."""
+def smem_bytes(hd: int, q_dtype: torch.dtype, kv_dtype: torch.dtype,
+               stages: int) -> int:
+    """Dynamic shared memory of one kernel block, as the CUDA source counts
+    it (``attention_plan``'s ``smem_bytes`` must agree)."""
     fn = _build.load("attention").sdvar_attention_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    return fn(hd, _DTYPES[dtype])
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    return fn(hd, _DTYPES[q_dtype], _CODES[kv_dtype], stages)
 
 
 def _check_operand(name: str, t: torch.Tensor, dtype, hd: int) -> None:
@@ -99,10 +198,7 @@ def _check_operand(name: str, t: torch.Tensor, dtype, hd: int) -> None:
         raise ValueError(f"attention_kernel: {name} needs packed heads and a "
                          f"contiguous head dim, got shape {tuple(t.shape)} "
                          f"strides {t.stride()}")
-    vec = 16 // t.element_size()  # the kernel loads 16 bytes at a time
-    if t.data_ptr() % 16 or t.stride(0) % vec or t.stride(1) % vec:
-        raise ValueError(f"attention_kernel: {name} must be 16-byte aligned "
-                         f"with strides a multiple of {vec}")
+    check_strides(name, t.stride()[:2], t.element_size(), t.data_ptr())
 
 
 def attention_kernel(q, k, v, bias: Optional[torch.Tensor], scale: float,
@@ -150,11 +246,13 @@ def attention_kernel(q, k, v, bias: Optional[torch.Tensor], scale: float,
                                  "with one pair of strides")
         ptrs += [ks.data_ptr(), vs.data_ptr()]
         strides += list(ks.stride())
+    plan = _plan(B, Lq, Lk, H, hd, q.dtype, kv_dtype)
     out = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device)
     ptrs += [bias.data_ptr() if bias is not None else None, out.data_ptr()]
     err = _lib(int8)(
         *ptrs, _DTYPES[q.dtype], B, Lq, Lk, H, hd, *strides, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream, plan["warpgroups"],
+        plan["stages"],
     )
     if err != 0:
         raise RuntimeError(f"attention_kernel: launch failed with cudaError {err}")
@@ -271,7 +369,7 @@ def _cache_lib():
     fn = _build.load("attention").sdvar_attention_cache
     if fn.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P] * 11 + [I] * 9 + [LL] * 12 + [ctypes.c_float, P]
+        fn.argtypes = [P] * 11 + [I] * 9 + [LL] * 12 + [ctypes.c_float, P, I, I]
         fn.restype = ctypes.c_int
     return fn
 
@@ -347,6 +445,8 @@ def _cache_launch(name, q, cache_k, cache_v, li, kv_len, bias, scale,
                                      "one pair of strides")
             new_ptrs[2:] = [kns.data_ptr(), vns.data_ptr()]
             new_strides[4:] = list(kns.stride())
+    plan = _plan(B, Lq, kv_len, H, hd, q.dtype, cache_k.dtype,
+                 write=write is not None)
     out = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=dev)
     err = _cache_lib()(
         q.data_ptr(), _layer_ptr(cache_k, li), _layer_ptr(cache_v, li),
@@ -357,6 +457,7 @@ def _cache_launch(name, q, cache_k, cache_v, li, kv_len, bias, scale,
         B, Lq, kv_len, split, H, hd, q.stride(0), q.stride(1),
         cache_k.stride(1), cache_k.stride(2), *s_strides, *new_strides,
         float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        plan["warpgroups"], plan["stages"],
     )
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")

@@ -394,6 +394,105 @@ def test_cache_kernels_refuse_what_they_do_not_take(cuda):
         attention_cache_kernel(q, ck, ck.clone(), 2, 8, None, 1.0)
 
 
+# The ring loop's edges (bf16 q): key counts around one tile and around
+# the 3-stage ring (191-193), the decode's 680 and a cache over 1000 keys;
+# query counts that leave ragged 64-row warpgroups (1, 100, 169) and the
+# decode's 256; K/V in bf16 (token-major, q a strided view of a fused qkv
+# tensor), int8 with scales (batch-major cache slices) and an f32 cache
+# under bf16 q (through the cache entry, which rounds it to bf16).
+RING_LK = [1, 5, 64, 65, 191, 192, 193, 680, 1100]
+RING_KINDS = ["bf16", "int8", "f32_cache"]
+
+
+def _ring_case(dev, g, kind, B, Lq, Lk, H, hd):
+    """Run the kernel and its plain version on one case; returns both."""
+    C = H * hd
+    qkv = torch.randn(B, Lq, 3, H, hd, device=dev, generator=g)
+    if kind == "int8":
+        qkv = qkv * 0.01
+    q = qkv.to(torch.bfloat16)[:, :, 0]  # q_sl = 3C: a view, not a copy
+    if kind == "bf16":
+        cache = torch.randn(2, Lk + 7, B, C, device=dev, generator=g)
+        k, v = (cache[i, :Lk].to(torch.bfloat16).view(Lk, B, H, hd) for i in range(2))
+        return (attention_kernel(q, k, v, None, 0.125, kv_token_major=True),
+                attention_plain(q, k, v, None, 0.125, kv_token_major=True))
+    depth = 2
+    ck, cv, cs = _cache(dev, g, torch.int8 if kind == "int8" else torch.float32,
+                        depth, B, Lk + 7, C)
+    if kind == "int8":
+        k, v = (c[1, :, :Lk].view(B, Lk, H, hd) for c in (ck, cv))
+        sc = (cs[0][1, :, :Lk], cs[1][1, :, :Lk])
+        return (attention_kernel(q, k, v, None, 0.125, kv_scales=sc),
+                attention_plain(q, k, v, None, 0.125, kv_scales=sc))
+    return (attention_cache_kernel(q, ck, cv, 1, Lk, None, 0.125),
+            attention_cache_plain(q, ck, cv, 1, Lk, None, 0.125))
+
+
+@pytest.mark.parametrize("Lk", RING_LK)
+@pytest.mark.parametrize("Lq", [1, 100, 169, 256])
+@pytest.mark.parametrize("kind", RING_KINDS)
+def test_attention_ring_edges(cuda, kind, Lq, Lk):
+    g = torch.Generator(device=cuda).manual_seed(Lq * 10007 + Lk)
+    got, want = _ring_case(cuda, g, kind, 2, Lq, Lk, 3, 64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(torch.bfloat16, want.float()), err
+
+
+@pytest.mark.parametrize("Lq,Lk", [(100, 65), (256, 680)])
+@pytest.mark.parametrize("kind", RING_KINDS)
+@pytest.mark.parametrize("hd", [32, 128])
+def test_attention_ring_head_dims(cuda, hd, kind, Lq, Lk):
+    g = torch.Generator(device=cuda).manual_seed(hd * 1000 + Lq + Lk)
+    got, want = _ring_case(cuda, g, kind, 2, Lq, Lk, 2, hd)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(torch.bfloat16, want.float()), err
+
+
+@pytest.mark.parametrize("bg,Lq", [(255, 425), (130, 39), (200, 1)])
+@pytest.mark.parametrize("c_dtype", [torch.bfloat16, torch.float32, torch.int8])
+def test_attention_ring_write_straddles_split(cuda, c_dtype, bg, Lq):
+    """The fused write with cache_begin not a multiple of the 64-key tile,
+    so one ring tile holds cache rows and new rows; the verify window's
+    (255 + 425) with a bias and a fully masked row. Cache rows and scales
+    bit-equal to the plain write; output within tolerance of the plain
+    version and bit-equal to the unfused pair."""
+    g = torch.Generator(device=cuda).manual_seed(bg + Lq)
+    depth, B, H, hd, li = 2, 2, 3, 64, 0
+    kv_len, C = bg + Lq, H * hd
+    q = torch.randn(B, Lq, H, hd, device=cuda, generator=g)
+    q = (q * (0.01 if c_dtype == torch.int8 else 1.0)).to(torch.bfloat16)
+    ck, cv, cs = _cache(cuda, g, c_dtype, depth, B, kv_len + 3, C)
+    knew, vnew = (torch.randn(B, Lq, H, hd, device=cuda, generator=g)
+                  .to(torch.bfloat16) for _ in range(2))
+    ns = None
+    if c_dtype == torch.int8:
+        (knew, ks), (vnew, vs) = (quantize_tokens(t.reshape(B, Lq, C))
+                                  for t in (knew, vnew))
+        knew, vnew, ns = knew.view(B, Lq, H, hd), vnew.view(B, Lq, H, hd), (ks, vs)
+    bias = _bias(cuda, g, Lq, kv_len)
+    clone = lambda c: None if c is None else tuple(t.clone() for t in c)
+    (ck_p, cv_p), cs_p = clone((ck, cv)), clone(cs)
+    got = attention_cache_write_kernel(q, knew, vnew, ck, cv, li, bg, kv_len,
+                                       bias, 0.125, ns, cs)
+    torch.cuda.synchronize()
+    want = attention_cache_write_plain(q, knew, vnew, ck_p, cv_p, li, bg,
+                                       kv_len, bias, 0.125, ns, cs_p)
+    assert torch.equal(ck, ck_p) and torch.equal(cv, cv_p)
+    if cs is not None:
+        assert all(torch.equal(a, b) for a, b in zip(cs, cs_p))
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= _tol(torch.bfloat16, want.float()), err
+    assert not got[:, -1].any() and torch.isfinite(got).all()
+    k, v = (c[li, :, :kv_len].view(B, kv_len, H, hd) for c in (ck, cv))
+    sc = None if cs is None else (cs[0][li, :, :kv_len], cs[1][li, :, :kv_len])
+    if sc is None and k.dtype != torch.bfloat16:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    assert torch.equal(got, attention_kernel(q, k, v, bias, 0.125, kv_scales=sc))
+
+
 @pytest.mark.parametrize("s8", [True, False])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(8, 64, 64), (100, 1920, 200),
