@@ -88,7 +88,9 @@ from sdvar_tpu_torch.ops.kernels.conv_s8 import conv3x3_s8_kernel, conv3x3_s8_pl
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import (
     int8_matmul_kernel,
     int8_matmul_plain,
+    matmul_plan,
 )
+from sdvar_tpu_torch.ops.kernels import matmul_int8 as MM
 from sdvar_tpu_torch.ops.kernels.quantize import (
     act_quantize_kernel,
     act_quantize_plain,
@@ -231,10 +233,21 @@ def act_quantize_bound(M, K, gelu):
 
 def int8_matmul_bound(M, K, N, x_itemsize, out_itemsize):
     """(bound ms, bound_by): x, the int8 weights and the scales read once,
-    the output written once, vs 2*M*K*N FLOPs at the peak of x's type."""
+    the output written once, vs the least time of the function's products.
+    A bf16 x: 2*M*K*N FLOPs at the bf16 tensor-core peak. An f32 x: the
+    lesser of 2*M*K*N at the CUDA cores' f32 rate and 3 x 2*M*K*N at the
+    bf16 peak, since every f32 is the exact sum of three bf16 pieces and
+    each piece times an int8 is exact in f32, so three bf16 products
+    summed in f32 compute the same function (0.3907 ms in place of 1.9231
+    at the head's M=8192, K=1920, N=4096: a correction of the yardstick,
+    not a gain)."""
     nbytes = M * K * x_itemsize + K * N + N * 4 + M * N * out_itemsize
-    peak = BF16_FLOPS if x_itemsize == 2 else F32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, 2 * M * K * N / peak * 1e3
+    flops = 2 * M * K * N
+    if x_itemsize == 2:
+        t_ops = flops / BF16_FLOPS * 1e3
+    else:
+        t_ops = min(flops / F32_FLOPS, 3 * flops / BF16_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -295,15 +308,37 @@ def phase_device_and_build():
     log(f"[device] torch: {name}, {torch.cuda.device_count()} card(s), "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
-    sources = ("attention", "matmul_int8", "conv_s8", "w8a8_fused")
+    sources = ("attention", "matmul_int8", "conv_s8", "w8a8_fused",
+               "scale_probe")
     _build.build(sources)  # one nvcc each, all started together
     log(f"[build] {', '.join(f'csrc/{s}.cu' for s in sources)} built in "
         f"{time.time() - t0:.1f} s")
     for src in sources:
         for line in _build.build_log(src).splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
-                                       "Compiling")):
+                                       "Compiling", "Performance")):
                 log(f"[build] {src}: {line.strip()}")
+    # every int8 matmul instance runs on the tensor cores through wgmma
+    hgmma = sass_hgmma("matmul_int8")
+    if hgmma is None:
+        log("[build] matmul_int8 SASS: no cuobjdump found, HGMMA not counted")
+    else:
+        log("[build] matmul_int8 SASS, HGMMA instructions per kernel: "
+            + ", ".join(f"{k}: {n}" for k, n in hgmma.items()))
+        if not hgmma or min(hgmma.values()) == 0:
+            raise AssertionError("an int8 matmul kernel has no HGMMA in its SASS")
+    tiles = []
+    for x_dt, shapes in MM.TILES.items():
+        for wg, bn in shapes:
+            for st in (3, 4):
+                got = MM.smem_bytes(x_dt, wg, bn, st)
+                want = MM._smem_bytes(x_dt, wg, bn, st)
+                if got != want:
+                    raise AssertionError(f"matmul_plan reserves {want} B of "
+                                         f"shared memory, the source {got}")
+                tiles.append(f"{str(x_dt)[6:]} {64 * wg}x{bn} s{st}: {got} B")
+    log("[build] int8 matmul dynamic shared memory per block (equal to "
+        "matmul_plan's): " + ", ".join(tiles))
     # the launch geometry is planned in Python: its shared memory must be
     # what the CUDA source reserves, for every instance
     sizes = []
@@ -328,15 +363,56 @@ def attention_ptxas(kv: str, write: bool, hd: int = 64) -> str:
     """The -Xptxas -v report (registers, spills) of one bf16-q attention
     instantiation, from the build log; kv: k/v's type, bf16, int8 or f32."""
     mangled = {"bf16": "13__nv_bfloat16", "int8": "a", "f32": "f"}[kv]
-    key = f"attention_mma_kernelILi{hd}E{mangled}Lb{int(write)}E"
-    lines = _build.build_log("attention").splitlines()
+    return _kernel_ptxas("attention",
+                         f"attention_mma_kernelILi{hd}E{mangled}Lb{int(write)}E")
+
+
+def _kernel_ptxas(src: str, key: str) -> str:
+    """The -Xptxas -v report (registers, spills) of the one kernel of
+    ``csrc/<src>.cu`` whose mangled name holds ``key``."""
+    lines = _build.build_log(src).splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and key in line:
             near = lines[i + 1:i + 4]
             used = next(x for x in near if "Used" in x).split(":", 1)[1]
             spill = next(x for x in near if "spill" in x)
             return f"{used.strip()}; {spill.strip()}"
-    raise AssertionError(f"no ptxas report for {key}")
+    raise AssertionError(f"no ptxas report for {key} in csrc/{src}.cu")
+
+
+def matmul_ptxas(x_dtype, plan) -> str:
+    """The ptxas report of the int8 matmul instance that ``plan`` launches."""
+    xt = "f" if x_dtype == torch.float32 else "13__nv_bfloat16"
+    return _kernel_ptxas("matmul_int8", f"int8_matmul_wgmma_kernelI{xt}"
+                         f"Li{plan['warpgroups']}ELi{plan['block_n']}E")
+
+
+def sass_hgmma(src: str) -> dict:
+    """{kernel: HGMMA instructions in its SASS} of ``csrc/<src>.cu``'s built
+    library, from cuobjdump (the CUDA toolkit's, else the one Triton
+    bundles); None where neither is there."""
+    tools = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "cuobjdump")]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if os.path.exists(t)), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build._target(src))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def attention_staging(Bq, Lq, Lk, H, hd, kv_dtype, write=False) -> str:
@@ -588,10 +664,15 @@ def phase_quant_kernel_checks():
                                  f"K={K}")
         errs[("act_quantize split", K)] = float(d.max().item())
 
-    for x_dtype, N in ((torch.bfloat16, 7680), (torch.float32, 4096),
-                       (torch.float32, 2048)):  # the 1x2 rank's vocab half
-        K = 1920
-        x = torch.randn(M, K, device=DEV, generator=g).to(x_dtype)
+    # fc1 and fc2 of the w8 decode, the head and the 1x2 rank's vocab half
+    # at scale 9 (M=8192), and ragged M: scale 8's 5408 rows, scale 4's 800
+    for x_dtype, Mx, K, N in ((torch.bfloat16, M, 1920, 7680),
+                              (torch.bfloat16, M, 7680, 1920),
+                              (torch.float32, M, 1920, 4096),
+                              (torch.float32, M, 1920, 2048),
+                              (torch.bfloat16, 5408, 7680, 1920),
+                              (torch.float32, 800, 1920, 4096)):
+        x = torch.randn(Mx, K, device=DEV, generator=g).to(x_dtype)
         qw = quantize_weight(torch.randn(K, N, device=DEV, generator=g) * 0.02)
         got = int8_matmul_kernel(x, qw.q, qw.scale).float()
         torch.cuda.synchronize()
@@ -599,12 +680,46 @@ def phase_quant_kernel_checks():
         err = (got - want).abs().max().item()
         lim = (2 ** -7 if x_dtype == torch.bfloat16 else 1e-5) * want.abs().max().item()
         ok = err <= lim
-        log(f"[check] int8_matmul {str(x_dtype)[6:]} M={M} K={K} N={N}: "
+        plan = matmul_plan(Mx, N, K, x_dtype)
+        log(f"[check] int8_matmul {str(x_dtype)[6:]} M={Mx} K={K} N={N} (tile "
+            f"{plan['block_m']}x{plan['block_n']}, {plan['stages']} stages, "
+            f"{plan['splits']} split(s) of K): "
             f"max|d|={err:.3e} (limit {lim:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"int8_matmul kernel disagrees for {x_dtype}")
-        errs[("int8_matmul", x_dtype, N)] = err
+            raise AssertionError(f"int8_matmul kernel disagrees for {x_dtype} "
+                                 f"at M={Mx} K={K} N={N}")
+        if Mx == M and K == 1920:
+            errs[("int8_matmul", x_dtype, N)] = err
+    for x_dtype in (torch.bfloat16, torch.float32):
+        same = _int8_matmul_graph_replay(x_dtype, g)
+        log(f"[check] int8_matmul {str(x_dtype)[6:]} M=800 K=1920 N=4096 "
+            f"captured in a CUDA graph and replayed on new x: bit-equal to the "
+            f"eager launch {same}")
+        if not same:
+            raise AssertionError("int8_matmul's graph replay differs from the "
+                                 "eager launch")
     return errs
+
+
+def _int8_matmul_graph_replay(x_dtype, g) -> bool:
+    """One int8_matmul_kernel launch captured in a CUDA graph (after an
+    eager launch) and replayed on new x, against an eager launch on that
+    x: bit-equal when the kernel allocates nothing and does not
+    synchronise."""
+    M, K, N = 800, 1920, 4096
+    x = torch.randn(M, K, device=DEV, generator=g).to(x_dtype)
+    qw = quantize_weight(torch.randn(K, N, device=DEV, generator=g) * 0.02)
+    int8_matmul_kernel(x, qw.q, qw.scale)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int8_matmul_kernel(x, qw.q, qw.scale)
+    x.copy_(torch.randn(M, K, device=DEV, generator=g).to(x_dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(out, int8_matmul_kernel(x, qw.q, qw.scale))
+    del graph
+    return same
 
 
 CONV_SHAPES = ((2, 16, 32, 8, 12), (1, 8, 64, 4, 4), (2, 24, 32, 12, 8),
@@ -1330,14 +1445,22 @@ def phase_kernel_times(launches, errs, smp):
         m_ms = cuda_ms(lambda: int8_matmul_kernel(xm, qw.q, qw.scale), 20)
         m_plain = cuda_ms(lambda: int8_matmul_plain(xm, qw.q, qw.scale), 10)
         m_lib = cuda_ms(lambda: torch.matmul(xm, wd), 20)
+        m_dev = device_ms(lambda: int8_matmul_kernel(xm, qw.q, qw.scale), 20)
         m_bound, m_by = int8_matmul_bound(M, K, N, xm.element_size(),
                                           xm.element_size())
         mm[x_dtype] = (m_ms, m_plain, m_lib, m_bound, m_by)
+        plan = matmul_plan(M, N, K, x_dtype)
+        fma = (f"; the old f32-FMA figure {2 * M * K * N / F32_FLOPS * 1e3:.4f} "
+               f"ms (2MKN at the CUDA cores' rate)" if N == 4096 else "")
         log(f"[time] int8_matmul {str(x_dtype)[6:]} (M=8192 K={K} N={N}, "
             f"{'the w8a8 head' if N == 4096 else 'the w8 fc1'}): kernel_ms "
-            f"{m_ms:.4f} plain_ms {m_plain:.4f} library_ms {m_lib:.4f} "
-            f"(torch.matmul on the dequantised weight, the dequant not "
-            f"timed) bound_ms {m_bound:.4f} ({m_by})")
+            f"{m_ms:.4f} (device-paced {m_dev:.4f}) plain_ms {m_plain:.4f} "
+            f"library_ms {m_lib:.4f} (torch.matmul on the dequantised weight, "
+            f"the dequant not timed) bound_ms {m_bound:.4f} ({m_by}{fma}); "
+            f"tile {plan['block_m']}x{plan['block_n']}, {plan['stages']} "
+            f"stages, {plan['splits']} split(s) of K, {plan['smem_bytes']} B "
+            f"dynamic shared memory; ptxas "
+            f"{matmul_ptxas(x_dtype, plan)}")
     m_ms, m_plain, m_lib, m_bound, m_by = mm[torch.float32]
     b_ms, b_plain, b_lib, b_bound, b_by = mm[torch.bfloat16]
 
@@ -2168,29 +2291,39 @@ def phase_f32_server(name):
 
 def phase_probe_times(launches):
     """Row 9: the probe kernel (``o = x * 2.0``, (8, 512) f32) against its
-    plain version (bit-equal), its time beside the plain version's, the
-    bound and ``x * 2.0`` as one PyTorch call; ``launches`` per rank from
-    the sharded probe of the mesh phase."""
+    plain version (bit-equal, also on an unaligned view), its time beside
+    the plain version's, the bound and ``x * 2.0`` as one PyTorch call,
+    each host-paced (``cuda_ms``: one launch after another at the host's
+    pace) and device-paced (``device_ms``: queued behind a spin kernel);
+    ``launches`` per rank from the sharded probe of the mesh phase."""
     x = torch.randn(8, 512, device=DEV)
     got, want = scale_probe_kernel(x), scale_probe_plain(x)
-    if not torch.equal(got, want):
+    odd = x.view(-1)[1:]  # 4 bytes off 16-byte alignment: the scalar path
+    if not (torch.equal(got, want)
+            and torch.equal(scale_probe_kernel(odd), scale_probe_plain(odd))):
         raise AssertionError("scale_probe kernel disagrees with x * 2.0")
-    k_ms = cuda_ms(lambda: scale_probe_kernel(x), 200)
-    p_ms = cuda_ms(lambda: scale_probe_plain(x), 200)
-    l_ms = cuda_ms(lambda: torch.mul(x, 2.0), 200)
+    fns = {"kernel": lambda: scale_probe_kernel(x),
+           "plain": lambda: scale_probe_plain(x),
+           "library": lambda: torch.mul(x, 2.0)}
+    host = {k: cuda_ms(f, 200) for k, f in fns.items()}
+    dev = {k: device_ms(f, 200) for k, f in fns.items()}
     bound = 2 * x.numel() * 4 / HBM_BPS * 1e3
-    log(f"[time] scale_probe (8, 512) f32: kernel_ms {k_ms:.4f} plain_ms "
-        f"{p_ms:.4f} library_ms {l_ms:.4f} (torch.mul(x, 2.0)) bound_ms "
-        f"{bound:.7f} (bytes: 16 KiB read, 16 KiB written); bit-equal to "
-        f"the plain version; launches per rank in the sharded probe "
-        f"{launches}")
-    return {"name": "scale_probe", "route": "triton",
-            "source": "sdvar_tpu_torch/ops/kernels/scale_probe.py",
+    log(f"[time] scale_probe (8, 512) f32, host-paced / device-paced ms: "
+        f"kernel {host['kernel']:.4f} / {dev['kernel']:.4f}, plain "
+        f"{host['plain']:.4f} / {dev['plain']:.4f}, torch.mul(x, 2.0) "
+        f"{host['library']:.4f} / {dev['library']:.4f}; bound_ms "
+        f"{bound:.7f} (bytes: 16 KiB read, 16 KiB written); bit-equal to the "
+        f"plain version; launches per rank in the sharded probe {launches}; "
+        f"ptxas {_kernel_ptxas('scale_probe', 'scale_probe_kernel')}")
+    return {"name": "scale_probe", "route": "cuda",
+            "source": "sdvar_tpu_torch/csrc/scale_probe.cu",
             "replaces": "tests/test_tp_pallas.py:194",
             "launches": launches[0], "launches_per_rank": launches,
             "max_abs_err": (got - want).abs().max().item(),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": l_ms}
+            "ms": host["kernel"], "plain_ms": host["plain"], "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": host["library"],
+            "device_paced": {"ms": dev["kernel"], "plain_ms": dev["plain"],
+                             "library_ms": dev["library"]}}
 
 
 MESH_WORLD = 2

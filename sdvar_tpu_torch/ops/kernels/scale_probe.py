@@ -1,4 +1,4 @@
-"""The multi-device probe kernel: the Triton kernel's wrapper and its plain
+"""The multi-device probe kernel: the CUDA kernel's wrapper and its plain
 version.
 
 Replaces the JAX package's ``kern`` (``tests/test_tp_pallas.py:194-203``),
@@ -9,18 +9,19 @@ port's sharded form (``ops.partition.sharded_scale_probe``) launches this
 kernel on each rank's column shard and all-gathers the shards; the result
 is the unsharded launch's bits, since each element is one exact product.
 
-Bound on this card: memory, each element read once and written once (16 KiB
-each way at (8, 512): about 1e-5 ms at 3.35 TB/s, far below one launch's
-cost). Design: one program per 1024 elements, vector loads and stores.
+The kernel lives in ``sdvar_tpu_torch/csrc/scale_probe.cu`` (CUDA C++ for
+sm_90a, loaded with ctypes); its source note gives the bound (bytes, far
+below one launch's cost) and why it replaced a Triton kernel (the launch
+path).
 """
 
 from __future__ import annotations
 
-import functools
+import ctypes
 
 import torch
 
-BLOCK = 1024
+from sdvar_tpu_torch.ops.kernels import _build
 
 
 def scale_probe_plain(x: torch.Tensor) -> torch.Tensor:
@@ -28,27 +29,25 @@ def scale_probe_plain(x: torch.Tensor) -> torch.Tensor:
     return x * 2.0
 
 
-@functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    """Build the Triton kernel on first use (triton is imported here, never
-    at module import: it exists only on the machine with the card)."""
-    import triton
-    import triton.language as tl
+_fn = None
 
-    @triton.jit
-    def scale_probe_kernel(x_ptr, o_ptr, n, BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        valid = offs < n
-        x = tl.load(x_ptr + offs, mask=valid, other=0.0)
-        tl.store(o_ptr + offs, x * 2.0, mask=valid)
 
-    return scale_probe_kernel
+def _lib():
+    """The C entry point, bound once: the probe's launch is its whole cost,
+    so a call does no more than it must (no lock, no lookup)."""
+    global _fn
+    if _fn is None:
+        fn = _build.load("scale_probe").sdvar_scale_probe
+        P = ctypes.c_void_p
+        fn.argtypes = [P, P, ctypes.c_longlong, P]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def scale_probe_kernel(x: torch.Tensor) -> torch.Tensor:
-    """Launch the Triton kernel on a CUDA f32 tensor (a strided view is
-    packed first); adds one to ``scale_probe_kernel.launches`` per
-    launch."""
+    """Launch the CUDA kernel on a CUDA f32 tensor (a strided view is packed
+    first); adds one to ``scale_probe_kernel.launches`` per launch."""
     if not x.is_cuda or x.dtype != torch.float32:
         raise ValueError(f"scale_probe_kernel: x must be a CUDA float32 "
                          f"tensor, got {x.device} {x.dtype}")
@@ -56,8 +55,11 @@ def scale_probe_kernel(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     n = x.numel()
     if n:
-        _triton_kernel()[(-(-n // BLOCK),)](x, out, n, BLOCK=BLOCK,
-                                            num_warps=4)
+        err = _lib()(x.data_ptr(), out.data_ptr(), n,
+                     torch._C._cuda_getCurrentRawStream(x.get_device()))
+        if err != 0:
+            raise RuntimeError(f"scale_probe_kernel: launch failed with "
+                               f"cudaError {err}")
         scale_probe_kernel.launches += 1
     return out
 

@@ -44,7 +44,7 @@ TOP = 16    # kernels listed per window
 _CATEGORIES = (  # (category, substrings of the kernel name), first match wins
     ("port attention kernel", ("attention_mma_kernel", "attention_f32_kernel")),
     ("port sampler kernel", ("fused_sample_kernel",)),
-    ("port int8 matmul kernel", ("int8_matmul_bf16_kernel", "int8_matmul_f32_kernel")),
+    ("port int8 matmul kernel", ("int8_matmul_wgmma_kernel",)),
     ("port act-quant kernel", ("act_quantize_kernel",)),
     ("port int8 conv kernel", ("conv3x3_s8_kernel",)),
     ("int8 GEMM (cuBLASLt, _int_mm)", ("s8", "i8", "imma", "int8")),

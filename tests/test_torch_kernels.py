@@ -183,10 +183,13 @@ def test_act_quantize_split_row_modes_match_plain(cuda, M, K, gelu):
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(2, 64, 192), (200, 1920, 272),
-                                   (130, 256, 4096)])
+                                   (130, 256, 4096)]
+                         + [(M, 7680, N) for M in (32, 288, 800, 5408)
+                            for N in (2048, 2880, 5760)])
 def test_int8_matmul_kernel_matches_plain(cuda, x_dtype, M, K, N):
     """Ragged M and N edges, the output in x's dtype, held against the plain
-    version's f32 sum on the same (exactly widened) x. Both sum exact
+    version's f32 sum on the same (exactly widened) x; the decode's M (scales
+    1, 3, 5 and 8, ragged at 288, 800 and 5408) at fc2's K. Both sum exact
     products in f32 and scale the sum; the order differs (1e-5 of the
     output's size in f32) and a bf16 output rounds once (up to 2^-8 of the
     largest output's binade, so 2^-7 of the size with the sum's order)."""
@@ -200,6 +203,29 @@ def test_int8_matmul_kernel_matches_plain(cuda, x_dtype, M, K, N):
     want = int8_matmul_plain(x.float(), q, s)
     tol = 1e-5 if x_dtype == torch.float32 else 2 ** -7
     assert (got.float() - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_kernel_replays_in_a_cuda_graph(cuda, x_dtype):
+    """One launch captured in a CUDA graph (after an eager one, which sets
+    the kernel's shared-memory limit) and replayed on new inputs gives the
+    eager launch's bits: the kernel allocates nothing and does not
+    synchronise."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    M, K, N = 800, 1920, 4096
+    x = torch.randn(M, K, device=cuda, generator=g).to(x_dtype)
+    q = torch.randint(-127, 128, (K, N), device=cuda, generator=g,
+                      dtype=torch.int8)
+    s = torch.rand(N, device=cuda, generator=g) * 1e-2
+    int8_matmul_kernel(x, q, s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int8_matmul_kernel(x, q, s)
+    x.copy_(torch.randn(M, K, device=cuda, generator=g).to(x_dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, int8_matmul_kernel(x, q, s))
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
