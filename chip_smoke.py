@@ -23,7 +23,10 @@ sdvar_tpu_torch.bench`` (one JSON line), the benchmark CLI's gamma and quant
 modes, the serving bench and the int8 matmul microbenchmark (the fused
 W8A8 kernel's path). It checks the outputs and the
 kernel launch counts of each path, holds small stacks on the card against
-the CPU plain path, times the three pixel decoders and the kernels. The
+the CPU plain path, times the three pixel decoders and the kernels (the
+act-quant and conv kernels also replayed in CUDA graphs, and the W8A8
+pixel decode held bit for bit against the same decode with the plain conv
+on the card). The
 last stdout line is ``{"ok": true, "device": {...}}``; any failed phase
 raises and the script exits non-zero without printing it. It needs a CUDA
 card and the ``sdvar_tpu_torch`` package beside it, and imports nothing of
@@ -84,7 +87,12 @@ from sdvar_tpu_torch.ops.kernels.attention import (
     smem_bytes,
 )
 from sdvar_tpu_torch.ops.masks import verify_window_bias
-from sdvar_tpu_torch.ops.kernels.conv_s8 import conv3x3_s8_kernel, conv3x3_s8_plain
+from sdvar_tpu_torch.ops.kernels import conv_s8 as CONV
+from sdvar_tpu_torch.ops.kernels.conv_s8 import (
+    conv3x3_s8_kernel,
+    conv3x3_s8_plain,
+    conv_plan,
+)
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import (
     int8_matmul_kernel,
     int8_matmul_plain,
@@ -96,6 +104,7 @@ from sdvar_tpu_torch.ops.kernels.quantize import (
     act_quantize_plain,
     act_scale_kernel,
     act_scale_plain,
+    quant_plan,
 )
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
 from sdvar_tpu_torch.ops.kernels.scale_probe import (
@@ -309,7 +318,7 @@ def phase_device_and_build():
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
     sources = ("attention", "matmul_int8", "conv_s8", "w8a8_fused",
-               "scale_probe")
+               "scale_probe", "act_quant")
     _build.build(sources)  # one nvcc each, all started together
     log(f"[build] {', '.join(f'csrc/{s}.cu' for s in sources)} built in "
         f"{time.time() - t0:.1f} s")
@@ -327,6 +336,22 @@ def phase_device_and_build():
             + ", ".join(f"{k}: {n}" for k, n in hgmma.items()))
         if not hgmma or min(hgmma.values()) == 0:
             raise AssertionError("an int8 matmul kernel has no HGMMA in its SASS")
+    # the wide conv path runs on the tensor cores through s8 wgmma, a GMMA
+    # in the SASS (IGMMA; the mma.sync kernel of the narrow path holds none)
+    conv_gmma = sass_hgmma("conv_s8", "GMMA")
+    if conv_gmma is not None:
+        wide = {k: n for k, n in conv_gmma.items() if "conv3x3_s8_tma_kernel" in k}
+        log("[build] conv_s8 SASS, GMMA (s8 wgmma) instructions per wide-path "
+            "kernel: " + ", ".join(f"{k}: {n}" for k, n in wide.items()))
+        if not wide or min(wide.values()) == 0:
+            raise AssertionError("a wide conv3x3_s8 kernel has no GMMA in its SASS")
+    if CONV.smem_bytes() != CONV.TMA_SMEM:
+        raise AssertionError("conv_plan's shared memory differs from the source's")
+    log(f"[build] conv3x3_s8 wide path: ptxas {conv_ptxas()}; "
+        f"{CONV.TMA_SMEM} B dynamic shared memory ({CONV.TMA_STAGES} stages, "
+        f"equal to conv_plan's); act_quantize fc2 instance (bf16, 2 loads a "
+        f"thread, GELU): ptxas {act_quant_ptxas(True)}; K=1920 instance: "
+        f"ptxas {act_quant_ptxas(False)}")
     tiles = []
     for x_dt, shapes in MM.TILES.items():
         for wg, bn in shapes:
@@ -387,10 +412,23 @@ def matmul_ptxas(x_dtype, plan) -> str:
                          f"Li{plan['warpgroups']}ELi{plan['block_n']}E")
 
 
-def sass_hgmma(src: str) -> dict:
-    """{kernel: HGMMA instructions in its SASS} of ``csrc/<src>.cu``'s built
-    library, from cuobjdump (the CUDA toolkit's, else the one Triton
-    bundles); None where neither is there."""
+def conv_ptxas() -> str:
+    """The ptxas report of the wide conv kernel the top level launches
+    (bf16 out, a 32-channel tail chunk)."""
+    return _kernel_ptxas("conv_s8", "conv3x3_s8_tma_kernelI13__nv_bfloat16Li32E")
+
+
+def act_quant_ptxas(gelu: bool) -> str:
+    """The ptxas report of the bf16, 16-byte, two-load act-quant kernel."""
+    return _kernel_ptxas("act_quant", "act_quantize_kernelI13__nv_bfloat16"
+                         f"Li8ELi2ELb{int(gelu)}E")
+
+
+def sass_hgmma(src: str, op: str = "HGMMA") -> dict:
+    """{kernel: ``op`` instructions in its SASS} of ``csrc/<src>.cu``'s
+    built library, from cuobjdump (the CUDA toolkit's, else the one Triton
+    bundles); None where neither is there. A bf16 wgmma is an HGMMA, an
+    s8 one an IGMMA (both hold "GMMA")."""
     tools = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                           "bin", "cuobjdump")]
     try:
@@ -410,7 +448,7 @@ def sass_hgmma(src: str) -> dict:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
+        elif fn is not None and op in line:
             counts[fn] += 1
     return counts
 
@@ -664,6 +702,39 @@ def phase_quant_kernel_checks():
                                  f"K={K}")
         errs[("act_quantize split", K)] = float(d.max().item())
 
+    # the act-quant kernel at every shape the W8A8 decode launches: the
+    # qkv, proj and fc1 inputs (K=1920, no GELU) bit-equal at the ten
+    # scales, the fc2 input (K=7680, bf16 bias + GELU) within the tolerance
+    for pn in PNS:
+        Ms = 2 * B * pn * pn
+        x = (torch.randn(Ms, 1920, device=DEV, generator=g) * 3).to(torch.bfloat16)
+        q8, s8 = act_quantize_kernel(x, None, False)
+        torch.cuda.synchronize()
+        qp, sp = act_quantize_plain(x, None, False)
+        same = torch.equal(q8, qp) and torch.equal(s8, sp)
+        xg = (torch.randn(Ms, 7680, device=DEV, generator=g) * 3).to(torch.bfloat16)
+        bg = torch.randn(7680, device=DEV, generator=g).to(torch.bfloat16)
+        qg, sg = act_quantize_kernel(xg, bg, True)
+        torch.cuda.synchronize()
+        qgp, sgp = act_quantize_plain(xg, bg, True)
+        d = (qg.int() - qgp.int()).abs()
+        frac = (d != 0).float().mean().item()
+        s_rel = ((sg - sgp).abs() / sgp).max().item()
+        ok = same and s_rel <= 1e-6 and d.max().item() <= 1 and frac < 1e-3
+        plan = quant_plan(Ms, 1920, torch.bfloat16)
+        log(f"[check] act_quantize scale pn={pn} (M={Ms}; K=1920: {plan['group']} "
+            f"threads a row, {plan['nv']} loads a thread, grid {plan['grid']}): "
+            f"K=1920 bit-equal {same}; K=7680 + GELU dq != 0 on {frac:.2e}, "
+            f"scales max rel {s_rel:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"act_quantize kernel disagrees at pn={pn}")
+    same = _act_quant_graph_replay(g)
+    log(f"[check] act_quantize M=800 K=7680 bf16 bias + GELU captured in a "
+        f"CUDA graph and replayed on new x: bit-equal to the eager launch {same}")
+    if not same:
+        raise AssertionError("act_quantize's graph replay differs from the "
+                             "eager launch")
+
     # fc1 and fc2 of the w8 decode, the head and the 1x2 rank's vocab half
     # at scale 9 (M=8192), and ragged M: scale 8's 5408 rows, scale 4's 800
     for x_dtype, Mx, K, N in ((torch.bfloat16, M, 1920, 7680),
@@ -701,6 +772,50 @@ def phase_quant_kernel_checks():
     return errs
 
 
+def _act_quant_graph_replay(g) -> bool:
+    """One act_quantize_kernel launch captured in a CUDA graph (after an
+    eager launch) and replayed on new x, against an eager launch on that
+    x: q and the scales bit-equal."""
+    x = (torch.randn(800, 7680, device=DEV, generator=g) * 3).to(torch.bfloat16)
+    bias = torch.randn(7680, device=DEV, generator=g).to(torch.bfloat16)
+    act_quantize_kernel(x, bias, True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, s = act_quantize_kernel(x, bias, True)
+    x.copy_((torch.randn(800, 7680, device=DEV, generator=g) * 3).to(torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    qe, se = act_quantize_kernel(x, bias, True)
+    same = torch.equal(q, qe) and torch.equal(s, se)
+    del graph
+    return same
+
+
+def _conv_graph_replay(g) -> bool:
+    """One conv3x3_s8_kernel launch of the wide path captured in a CUDA
+    graph and replayed on new x, against an eager launch: bit-equal."""
+    Bc, H, W, C, O = 4, 64, 64, 160, 160
+    x8 = torch.randint(-127, 128, (Bc, H, W, C), device=DEV, generator=g,
+                       dtype=torch.int8)
+    wk = torch.randint(-127, 128, (O, 3, 3, C), device=DEV, generator=g,
+                       dtype=torch.int8)
+    scale = torch.rand(O, device=DEV, generator=g) * 2e-3
+    bias = torch.randn(O, device=DEV, generator=g)
+    conv3x3_s8_kernel(x8, wk, scale, bias)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = conv3x3_s8_kernel(x8, wk, scale, bias)
+    x8.copy_(torch.randint(-127, 128, x8.shape, device=DEV, generator=g,
+                           dtype=torch.int8))
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(out, conv3x3_s8_kernel(x8, wk, scale, bias))
+    del graph
+    return same
+
+
 def _int8_matmul_graph_replay(x_dtype, g) -> bool:
     """One int8_matmul_kernel launch captured in a CUDA graph (after an
     eager launch) and replayed on new x, against an eager launch on that
@@ -723,7 +838,9 @@ def _int8_matmul_graph_replay(x_dtype, g) -> bool:
 
 
 CONV_SHAPES = ((2, 16, 32, 8, 12), (1, 8, 64, 4, 4), (2, 24, 32, 12, 8),
-               (1, 16, 32, 160, 3), (16, 256, 256, 160, 160))
+               (1, 16, 32, 160, 3)) + tuple(
+    (2, 8, 37, C, O) for C in (32, 160, 320) for O in (160, 320, 640, 200)) + (
+    (16, 256, 256, 160, 160),)
 CONV_FULL = CONV_SHAPES[-1]  # the pixel decoder's top level at B=16
 
 
@@ -747,12 +864,23 @@ def phase_conv_checks():
             want = conv3x3_s8_plain(x8, wk, scale, bias, dtype)
             err = (got.float() - want.float()).abs().max().item()
             ok = torch.equal(got, want)
-            log(f"[check] conv3x3_s8 {str(dtype)[6:]} (B,H,W,C,O)={shape}: "
-                f"max|d|={err:.3e} bit-equal {ok} {'ok' if ok else 'FAIL'}")
+            plan = conv_plan(*shape)
+            log(f"[check] conv3x3_s8 {str(dtype)[6:]} (B,H,W,C,O)={shape} "
+                f"({plan['path']} path"
+                + (f", box {plan['box_w']}x{plan['box_h']}, {plan['k_steps']} "
+                   f"128-channel steps + tail {plan['tail']}, grid {plan['grid']}"
+                   if plan["path"] == "tma" else "")
+                + f"): max|d|={err:.3e} bit-equal {ok} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"conv3x3_s8 kernel disagrees at {shape}")
             errs[("conv3x3_s8", dtype, shape)] = err
         del x8, wk, got, want
+    same = _conv_graph_replay(g)
+    log(f"[check] conv3x3_s8 (4, 64, 64, 160 -> 160) wide path captured in a "
+        f"CUDA graph and replayed on new x: bit-equal to the eager launch {same}")
+    if not same:
+        raise AssertionError("conv3x3_s8's graph replay differs from the eager "
+                             "launch")
     torch.cuda.empty_cache()
     return errs
 
@@ -840,7 +968,7 @@ def phase_quant_path(name):
         f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     labels = [torch.arange(B) * 61 % 1000, torch.arange(B) * 7 + 100,
               torch.full((B,), 207)]
-    # warm-up (Triton compiles the act-quant specialisations here)
+    # warm-up (the sampler compiles here, the CUDA kernels load)
     generate_images(var_cfg, vae_cfg, params, vae, labels[0], 0, samp,
                     kv_mode="int8")
     torch.cuda.synchronize()
@@ -1038,8 +1166,9 @@ def _serve_measured(srv, requests, tag, per_batch):
 def _pixel_decoders(vae_cfg, vae, f_hat, sites):
     """The three pixel decoders on one B=16 f_hat: print their ms (CUDA
     events, best of 3 after a warm-up) and the |d| of the bf16 and W8A8
-    images against the f32 golden one; return the conv launches per W8A8
-    decode."""
+    images against the f32 golden one; require the W8A8 images bit-equal
+    to the same decode with the plain conv on the card; return the conv
+    launches per W8A8 decode."""
     runs = {"fhat_to_img (f32 golden)": lambda: fhat_to_img(vae_cfg, vae, f_hat),
             "fhat_to_img_nhwc (bf16)": lambda: fhat_to_img_nhwc(vae_cfg, vae, f_hat),
             "fhat_to_img_nhwc_w8a8_static": lambda: fhat_to_img_nhwc_w8a8_static(
@@ -1055,6 +1184,22 @@ def _pixel_decoders(vae_cfg, vae, f_hat, sites):
         fhat_to_img_nhwc_w8a8_static(vae_cfg, vae, f_hat, sites)
         torch.cuda.synchronize()
     per_decode = conv3x3_s8_kernel.launches
+    # the W8A8 decode with every site's conv in its plain version on the
+    # card: the same bits
+    real = conv_s8_ops.conv3x3_s8_ohwi
+    conv_s8_ops.conv3x3_s8_ohwi = conv3x3_s8_plain
+    try:
+        with torch.inference_mode():
+            plain_img = fhat_to_img_nhwc_w8a8_static(vae_cfg, vae, f_hat, sites)
+    finally:
+        conv_s8_ops.conv3x3_s8_ohwi = real
+    same = torch.equal(plain_img, imgs["fhat_to_img_nhwc_w8a8_static"])
+    log(f"[pixels] fhat_to_img_nhwc_w8a8_static through conv3x3_s8_kernel "
+        f"against the same decode with conv3x3_s8_plain on the card: "
+        f"bit-equal {same}")
+    if not same:
+        raise AssertionError("the W8A8 pixel decode through the conv kernel "
+                             "differs from the decode with the plain conv")
     gold = imgs["fhat_to_img (f32 golden)"]
     for name in list(runs)[1:]:
         d = (imgs[name] - gold).abs()
@@ -1175,11 +1320,23 @@ def phase_conv_times(launches, per_decode, errs):
     bb = bias.to(torch.bfloat16)
     c_ms = cuda_ms(lambda: F.conv2d(xb, wb, bb, padding=1), 20)
     bound, by = conv3x3_s8_bound(Bc, H, W, C, O, 2)
-    log(f"[time] conv3x3_s8 (B={Bc} H={H} W={W} C={C} O={O}, int8 -> bf16): "
-        f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms none "
-        f"bound_ms {bound:.4f} ({by}); bf16_conv_ms {c_ms:.4f} (F.conv2d, "
-        f"cuDNN, channels-last bf16, the conv the site replaces); launches "
-        f"per W8A8 pixel decode {per_decode}")
+    plan = conv_plan(Bc, H, W, C, O)
+    # conv_out (160 -> 3) on the narrow path, beside its cuDNN conv
+    wn = wk[:3].contiguous()
+    n_ms = cuda_ms(lambda: conv3x3_s8_kernel(x8, wn, scale[:3].contiguous(),
+                                             bias[:3].contiguous()), 20)
+    wbn = wb[:3].contiguous(memory_format=torch.channels_last)
+    cn_ms = cuda_ms(lambda: F.conv2d(xb, wbn, bb[:3], padding=1), 20)
+    n_bound = conv3x3_s8_bound(Bc, H, W, C, 3, 2)[0]
+    log(f"[time] conv3x3_s8 (B={Bc} H={H} W={W} C={C} O={O}, int8 -> bf16, "
+        f"{plan['path']} path, box {plan['box_w']}x{plan['box_h']}, "
+        f"{plan['stages']} stages, grid {plan['grid']}): kernel_ms "
+        f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms none bound_ms "
+        f"{bound:.4f} ({by}); bf16_conv_ms {c_ms:.4f} (F.conv2d, cuDNN, "
+        f"channels-last bf16, the conv the site replaces); launches per W8A8 "
+        f"pixel decode {per_decode}; ptxas {conv_ptxas()}; conv_out (O=3, "
+        f"{conv_plan(Bc, H, W, C, 3)['path']} path) kernel_ms {n_ms:.4f} "
+        f"bound_ms {n_bound:.4f} bf16_conv_ms {cn_ms:.4f}")
     return {"name": "conv3x3_s8", "route": "cuda",
             "source": "sdvar_tpu_torch/csrc/conv_s8.cu",
             "replaces": "sdvar_tpu/ops/pallas/conv_s8.py:58",
@@ -1187,7 +1344,9 @@ def phase_conv_times(launches, per_decode, errs):
             "max_abs_err": errs[("conv3x3_s8", torch.bfloat16, CONV_FULL)],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "bf16_conv_ms": c_ms,
-            "launches_per_pixel_decode": per_decode}
+            "launches_per_pixel_decode": per_decode,
+            "conv_out_narrow": {"ms": n_ms, "bound_ms": n_bound,
+                                "bf16_conv_ms": cn_ms}}
 
 
 SMALL_PNS = (1, 2, 3)
@@ -1411,11 +1570,23 @@ def phase_kernel_times(launches, errs, smp):
     x1 = x[:, :1920].contiguous()
     q1_ms = cuda_ms(lambda: act_quantize_kernel(x1, None, False), 50)
     q1_bound, q1_by = act_quantize_bound(M, 1920, False)
+    x0 = x1[:2 * B].contiguous()  # scale 0: the host's pace
+    for _ in range(20):
+        act_quantize_kernel(x0, None, False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(500):
+        act_quantize_kernel(x0, None, False)
+    torch.cuda.synchronize()
+    q0_host = (time.perf_counter() - t0) * 1e3 / 500
+    q0_dev = device_ms(lambda: act_quantize_kernel(x0, None, False), 50)
     log(f"[time] act_quantize scale 9 (M=8192 K=7680 bf16, bias + GELU): "
         f"kernel_ms {q_ms:.4f} plain_ms {q_plain:.4f} library_ms none "
         f"bound_ms {q_bound:.4f} ({q_by}) launches/decode "
         f"{launches['act_quantize'] // N_BATCHES}; K=1920 without GELU "
-        f"kernel_ms {q1_ms:.4f} bound_ms {q1_bound:.4f} ({q1_by})")
+        f"kernel_ms {q1_ms:.4f} bound_ms {q1_bound:.4f} ({q1_by}); scale 0 "
+        f"(M=32 K=1920) host-paced {q0_host:.4f} ms a call, device-paced "
+        f"{q0_dev:.4f}; ptxas {act_quant_ptxas(True)}")
     # the 1x2 rank's fc2 input (K=3840): the two split-row passes beside
     # one whole pass; bounds: x and the bias read, scales written (scale
     # only), and x, the bias and the scales read, int8 written (given)
@@ -1487,13 +1658,15 @@ def phase_kernel_times(launches, errs, smp):
          "max_abs_err": errs[("attention_int8", torch.bfloat16, 256, 680)],
          "ms": i_ms, "plain_ms": i_plain, "bound_ms": i_bound,
          "bound_by": i_by, "library_ms": i_lib},
-        {"name": "act_quantize", "route": "triton",
-         "source": "sdvar_tpu_torch/ops/kernels/quantize.py",
+        {"name": "act_quantize", "route": "cuda",
+         "source": "sdvar_tpu_torch/csrc/act_quant.cu",
          "replaces": "sdvar_tpu/ops/pallas/quantize.py:46",
          "launches": launches["act_quantize"],
          "max_abs_err": errs[("act_quantize", 7680)],
          "ms": q_ms, "plain_ms": q_plain, "bound_ms": q_bound,
-         "bound_by": q_by, "library_ms": None, "split_row_k3840": split},
+         "bound_by": q_by, "library_ms": None, "split_row_k3840": split,
+         "k1920_ms": q1_ms, "k1920_bound_ms": q1_bound,
+         "scale0_host_paced_ms": q0_host, "scale0_device_ms": q0_dev},
         {"name": "int8_matmul", "route": "cuda",
          "source": "sdvar_tpu_torch/csrc/matmul_int8.cu",
          "replaces": "sdvar_tpu/ops/pallas/matmul_int8.py:30",

@@ -70,6 +70,7 @@
 
 #include <type_traits>
 
+#include "tensor_map.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -361,26 +362,6 @@ __global__ void __launch_bounds__(128 * WG,
                              sum.w * s[n + 3]));
   }
   cluster.sync();  // no block leaves while another reads its partial
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (nothing
-// more to link)
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
 }
 
 // A 2-d tensor map: dims (inner, outer), outer stride in bytes, a box of

@@ -1,5 +1,5 @@
 // Device helpers shared by the port's Hopper (sm_90a) kernels,
-// attention.cu and matmul_int8.cu: cp.async copies into shared memory,
+// attention.cu, matmul_int8.cu and conv_s8.cu: cp.async copies into shared memory,
 // tensor-memory-accelerator (TMA) tile loads completing on mbarriers,
 // warpgroup MMA (wgmma) with its fences and shared-memory descriptors, the
 // 128-byte swizzle wgmma reads, and exact int8 -> bf16 and f32 -> 3 x bf16
@@ -64,6 +64,11 @@ static __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
       "r"(bytes)
       : "memory");
 }
+// one arrival on bar (no transactions): a consumer releasing a stage
+static __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
 static __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
                                                      int parity) {
   uint32_t done;
@@ -94,6 +99,19 @@ static __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the same for a 4-d box at (c0 innermost, c1, c2, c3); coordinates may be
+// negative or past the edges, where the box lands as zeros
+static __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                                   int c0, int c1, int c2,
+                                                   int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
       : "memory");
 }
@@ -336,4 +354,47 @@ static __device__ __forceinline__ void split_bf16x3(float x0, float x1,
   hi = *reinterpret_cast<const uint32_t*>(&h);
   mid = *reinterpret_cast<const uint32_t*>(&m);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// d (64 x 160, s32) (+)= A (64 x 32 s8, shared memory, K-major, descriptor
+// ad) * B (32 x 160 s8, shared memory, K-major, descriptor bd), exact;
+// accumulate = 0 overwrites d. 8-bit wgmma takes both operands K-major.
+static __device__ __forceinline__ void wgmma_s8_n160(int (&d)[20][4],
+                                                     uint64_t ad, uint64_t bd,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, %80, %81, p;\n}\n"
+      :
+        "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3]),
+        "+r"(d[16][0]), "+r"(d[16][1]), "+r"(d[16][2]), "+r"(d[16][3]),
+        "+r"(d[17][0]), "+r"(d[17][1]), "+r"(d[17][2]), "+r"(d[17][3]),
+        "+r"(d[18][0]), "+r"(d[18][1]), "+r"(d[18][2]), "+r"(d[18][3]),
+        "+r"(d[19][0]), "+r"(d[19][1]), "+r"(d[19][2]), "+r"(d[19][3])
+      : "l"(ad), "l"(bd), "r"(accumulate));
+}
+
+// pin for s32 accumulators
+template <int N>
+static __device__ __forceinline__ void pin_s32(int (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[n][e])::"memory");
 }

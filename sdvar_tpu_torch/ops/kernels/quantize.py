@@ -1,5 +1,5 @@
-"""Fused activation quantization: the Triton kernel's wrapper and its plain
-version.
+"""Fused activation quantization: the CUDA kernel's wrapper, its launch
+plan and its plain version.
 
 Replaces the TPU kernel ``sdvar_tpu/ops/pallas/quantize.py:_kernel``
 (reached through ``act_quantize``). Same function, one pass over a row:
@@ -9,26 +9,18 @@ Replaces the TPU kernel ``sdvar_tpu/ops/pallas/quantize.py:_kernel``
     s = max(amax(|h|) / 127, 1e-8)                       per token, f32
     q = round_half_even(h / s)  as int8                  (no clip needed)
 
-Numerics against the plain version: the divisions are IEEE round-to-nearest
-(``tl.div_rn``, as the plain version's ``/``; a reciprocal multiply would flip
-ties), the rounding is ``rint`` (half to even, as ``torch.round`` and
-``jnp.round``; CUDA's ``roundf`` rounds half away from zero), and FMA
-contraction is off so products and sums round as the plain version's do.
-The one function that differs is tanh: libdevice's ``tanhf`` is within
-2 ulp of the correctly rounded value, PyTorch's CPU and CUDA tanh within
-1, so with ``gelu`` an h may differ in its last bit and a q sitting on a
-rounding boundary may move by one step (the checks allow |dq| <= 1 on fewer
-than 1e-3 of the elements and scales within 1e-6 relative).
-
-Bound on this card: memory. At the fc2 input of the d30 decode's last
-256px scale (M = 2B*256 = 8192 rows at B=16, K = 7680, bf16) it reads
-126 MB and writes 63 MB of int8 plus the scales: about 0.056 ms at
-3.35 TB/s, against about 14 operations per element. Design: one Triton
-program per row holds the whole row (a masked power-of-two block: 8192
-lanes for K=7680, 16 per thread) in registers, so x is read once and
-written once as int8; masked lanes load 0 and are excluded from the amax. The TPU version's
-row-block VMEM budget (``_pick_bm``) and its ``MIN_FUSED_ROWS`` gate are
-TPU tuning and are not carried over.
+The kernel lives in ``sdvar_tpu_torch/csrc/act_quant.cu`` (CUDA C++ for
+sm_90a, loaded with ctypes and bound once: the W8A8 decode launches it 1200
+times, most of them at the host's pace); its source note gives the bound,
+the design and the numerics: without GELU it gives the plain version's
+bits (the quotient is a reciprocal product corrected to the IEEE quotient
+near a rounding tie, ``exact_quotient_rint`` here); with GELU CUDA's tanhf
+against PyTorch's tanh may move a q on a rounding boundary by one step (the
+checks allow |dq| <= 1 on fewer than 1e-3 of the elements and scales within
+1e-6 relative). ``quant_plan`` picks the launch geometry in Python: threads
+a row, 16-byte loads a thread, rows a block. The TPU version's row-block
+VMEM budget (``_pick_bm``) and its ``MIN_FUSED_ROWS`` gate are TPU tuning
+and are not carried over.
 
 Two more modes serve a row split over ranks (``quantize_activation(
 sharded=True)`` in ``ops/quantization.py``): the scales alone, with no int8
@@ -38,10 +30,13 @@ amax (``scale=``).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
 import torch
+
+from sdvar_tpu_torch.ops.kernels import _build
 
 
 def _act_rows(x: torch.Tensor, bias: Optional[torch.Tensor], gelu: bool
@@ -84,96 +79,159 @@ def act_scale_plain(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
     return _row_scale(_act_rows(x, bias, gelu))
 
 
-@functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    """Build the Triton kernel on first use (triton is imported here, never
-    at module import: it exists only on the machine with the card)."""
-    import triton
-    import triton.language as tl
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MIN_GROUP, MAX_GROUP = 32, 1024  # threads that hold a row
+VECTOR_BYTES = 16
+SMS = 132                # streaming multiprocessors of an H100 SXM
+THREADS_PER_SM = 2048
+# below this many threads in all (about half the card's), a launch is bound
+# by its latency, and one load a thread is the shorter chain
+# (tools/ab_act_quant.py, H100 SXM: up to M = 512 rows at K = 1920)
+LATENCY_BOUND_THREADS = 1 << 17
 
-    try:
-        from triton.language.extra import libdevice
-    except ImportError:  # older layout
-        from triton.language.extra.cuda import libdevice
 
-    @triton.jit
-    def act_quantize_kernel(x_ptr, b_ptr, q_ptr, s_ptr, K, x_stride,
-                            HAS_BIAS: tl.constexpr, GELU: tl.constexpr,
-                            HAS_SCALE: tl.constexpr, STORE_Q: tl.constexpr,
-                            BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        valid = cols < K
-        h = tl.load(x_ptr + row * x_stride + cols, mask=valid,
-                    other=0.0).to(tl.float32)
-        if HAS_BIAS:
-            h = h + tl.load(b_ptr + cols, mask=valid, other=0.0).to(tl.float32)
-        if GELU:
-            z = 0.7978845608028654 * (h + 0.044715 * h * h * h)
-            h = 0.5 * h * (1.0 + libdevice.tanh(z))
-        if HAS_SCALE:  # the whole row's scale, given: read, not written
-            s = tl.load(s_ptr + row)
-        else:
-            amax = tl.max(tl.where(valid, tl.abs(h), 0.0), axis=0)
-            s = tl.maximum(tl.div_rn(amax, 127.0), 1e-8)
-            tl.store(s_ptr + row, s)
-        if STORE_Q:  # else the scales alone (a row split over ranks)
-            q = libdevice.rint(tl.div_rn(h, s))
-            tl.store(q_ptr + row * K + cols, q.to(tl.int8), mask=valid)
+@functools.lru_cache(maxsize=1024)
+def quant_plan(M: int, K: int, x_dtype: torch.dtype, vector: bool = True
+               ) -> dict:
+    """The launch geometry of ``csrc/act_quant.cu`` for M rows of K
+    elements of ``x_dtype``: ``vec`` elements a load (16 bytes' worth, or 1
+    when ``vector`` is false), a row held by ``group`` threads (a power of
+    two from 32 to 1024: the fewest that hold the row in at most two loads
+    a thread; in one load a thread where M rows of them are at most
+    ``LATENCY_BOUND_THREADS``), ``nv`` loads a thread (1 or 2), blocks of
+    ``threads``
+    (128, or the group when larger) holding ``rows_per_block`` rows at a
+    time, and ``grid`` blocks: one for each ``rows_per_block`` rows, at
+    most as many as the card holds at once (2048 threads an SM), each
+    walking its rows ``grid`` blocks apart. Raises ValueError with the
+    wrapper's message for a row the kernel cannot hold in registers (more
+    than 2048 loads)."""
+    if x_dtype not in _DTYPES:
+        raise ValueError(f"act_quantize_kernel: x must be float32 or "
+                         f"bfloat16, got {x_dtype}")
+    if M <= 0 or K <= 0:
+        raise ValueError(f"act_quantize_kernel: no launch for M={M} K={K}")
+    vec = VECTOR_BYTES // (4 if x_dtype == torch.float32 else 2) if vector else 1
+    if K % vec:
+        raise ValueError(f"act_quantize_kernel: K={K} is not a multiple of "
+                         f"the {vec}-element vector")
+    nvec = K // vec
+    if nvec > 2 * MAX_GROUP:
+        raise ValueError(f"act_quantize_kernel: K={K} exceeds the "
+                         f"{2 * MAX_GROUP * vec} elements a row group holds "
+                         f"in registers"
+                         f"{'' if vector else ' one element a load'}")
+    whole = max(MIN_GROUP, 1 << max(nvec - 1, 0).bit_length())
+    if whole <= MAX_GROUP and M * whole <= LATENCY_BOUND_THREADS:
+        group, nv = whole, 1  # few rows: the shortest chain a thread
+    else:
+        group = max(MIN_GROUP, 1 << max(-(-nvec // 2) - 1, 0).bit_length())
+        nv = 1 if group >= nvec else 2
+    threads = max(128, group)
+    rows = threads // group
+    return {"vec": vec, "group": group, "nv": nv, "threads": threads,
+            "rows_per_block": rows,
+            "grid": min(-(-M // rows), SMS * (THREADS_PER_SM // threads))}
 
-    return act_quantize_kernel
+
+def exact_quotient_rint(h: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``rint(fl(h / s))`` as the kernel forms it, in f32 on any device:
+    ``p = fl(h * fl(1 / s))`` rounded half to even, except where p lies
+    within 2^-12 of a half-integer, |p| > 128 or 1 / s is not a normal
+    number: there the IEEE quotient, rounded. Equal to
+    ``torch.round(h / s)``: for |p| <= 128, p is within 3 * 2^-24 * 128
+    (under 2.3e-5) of the IEEE quotient, so away from a half-integer both
+    round to the same integer."""
+    h, s = h.float(), s.float()
+    r = torch.ones_like(s) / s
+    p = h * r
+    t = torch.round(p)
+    near = (p - t).abs() >= 0.5 - 2.0 ** -12
+    careful = ~(r >= 2.0 ** -126) | ~(p.abs() <= 128.0)
+    return torch.where(near | careful, torch.round(h / s), t)
+
+
+_fn = None
+
+
+def _lib():
+    """The C entry point, bound once (no lock, no lookup a launch)."""
+    global _fn
+    if _fn is None:
+        fn = _build.load("act_quant").sdvar_act_quantize
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, I, I, I, I, ctypes.c_longlong, I, I, I, I,
+                       I, I, I, P]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def _launch(x: torch.Tensor, bias: Optional[torch.Tensor], gelu: bool,
             scale: Optional[torch.Tensor], store_q: bool):
+    """One launch; the host path is kept short (no reshape of a
+    contiguous x, outputs allocated in their final shapes): at the
+    decode's first scales the host's time per launch is the launch's
+    cost."""
     if not x.is_cuda:
         raise ValueError("act_quantize_kernel: x must be a CUDA tensor")
-    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() < 1:
+    xd = _DTYPES.get(x.dtype)
+    if xd is None or x.dim() < 1:
         raise ValueError(f"act_quantize_kernel: x must be (..., K) float32 or "
                          f"bfloat16, got {tuple(x.shape)} {x.dtype}")
-    K = x.shape[-1]
-    x2 = x.reshape(-1, K)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
-    M = x2.shape[0]
-    if bias is not None:
-        if (bias.shape != (K,) or bias.device != x.device or bias.stride(0) != 1
-                or bias.dtype not in (torch.float32, torch.bfloat16)):
-            raise ValueError(f"act_quantize_kernel: bias must be a contiguous "
-                             f"float32 or bfloat16 ({K},) on x's device")
-    q = (torch.empty((M, K), dtype=torch.int8, device=x.device) if store_q
-         else None)
-    if scale is None:
-        s = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    shape = x.shape
+    K = shape[-1]
+    dev = x.get_device()
+    if bias is not None and (bias.shape != (K,) or bias.get_device() != dev
+                             or bias.stride(0) != 1 or bias.dtype not in _DTYPES):
+        raise ValueError(f"act_quantize_kernel: bias must be a contiguous "
+                         f"float32 or bfloat16 ({K},) on x's device")
+    if x.is_contiguous():
+        x2, M, xs = x, (x.numel() // K if K else 0), K
     else:
-        if (scale.dtype != torch.float32 or scale.device != x.device
+        x2 = x.reshape(-1, K)
+        if x2.stride(-1) != 1:
+            x2 = x2.contiguous()
+        M, xs = x2.shape[0], x2.stride(0)
+    if scale is None:
+        s = torch.empty((*shape[:-1], 1), dtype=torch.float32, device=x.device)
+    else:
+        if (scale.dtype != torch.float32 or scale.get_device() != dev
                 or scale.numel() != M):
             raise ValueError(f"act_quantize_kernel: scale must be float32 "
                              f"(..., 1) with one value per row ({M}) on x's "
                              f"device")
-        s = scale.reshape(M, 1).contiguous()
+        s = scale.contiguous().view(*shape[:-1], 1)
+    q = torch.empty(shape, dtype=torch.int8, device=x.device) if store_q else None
     if M:
-        block = 1 << max(K - 1, 1).bit_length()
-        # 16 elements a thread: 16 warps at K=7680, 4 at K=1920
-        _triton_kernel()[(M,)](
-            x2, bias if bias is not None else s, q if store_q else s, s, K,
-            x2.stride(0),
-            HAS_BIAS=bias is not None, GELU=bool(gelu),
-            HAS_SCALE=scale is not None, STORE_Q=store_q, BLOCK=block,
-            num_warps=min(16, max(4, block // 512)), enable_fp_fusion=False,
-        )
+        vector = K % (VECTOR_BYTES // x2.element_size()) == 0
+        if vector and (x2.data_ptr() % VECTOR_BYTES
+                       or xs * x2.element_size() % VECTOR_BYTES):
+            x2, xs = x2.reshape(-1, K).clone(memory_format=torch.contiguous_format), K
+        if vector and bias is not None and bias.data_ptr() % VECTOR_BYTES:
+            bias = bias.clone()
+        plan = quant_plan(M, K, x2.dtype, vector)
+        err = _lib()(x2.data_ptr(), None if bias is None else bias.data_ptr(),
+                     None if q is None else q.data_ptr(), s.data_ptr(), xd,
+                     1 if bias is None else _DTYPES[bias.dtype], M, K, xs,
+                     1 if gelu else 0,
+                     2 if scale is not None else (0 if store_q else 1),
+                     plan["group"], plan["nv"], int(vector), plan["threads"],
+                     plan["grid"], torch._C._cuda_getCurrentRawStream(dev))
+        if err != 0:
+            raise RuntimeError(f"act_quantize_kernel: launch failed with "
+                               f"cudaError {err}")
         act_quantize_kernel.launches += 1
-    return q, s.view(*x.shape[:-1], 1)
+    return q, s
 
 
 def act_quantize_kernel(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
                         gelu: bool = True, scale: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Triton kernel on a CUDA tensor; same contract as
+    """Launch the CUDA kernel on a CUDA tensor; same contract as
     :func:`act_quantize_plain`. Adds one to ``act_quantize_kernel.launches``
     per launch."""
-    q, s = _launch(x, bias, gelu, scale, store_q=True)
-    return q.view(*x.shape), s
+    return _launch(x, bias, gelu, scale, store_q=True)
 
 
 def act_scale_kernel(x: torch.Tensor, bias: Optional[torch.Tensor] = None,

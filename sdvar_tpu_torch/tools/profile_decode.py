@@ -46,7 +46,7 @@ _CATEGORIES = (  # (category, substrings of the kernel name), first match wins
     ("port sampler kernel", ("fused_sample_kernel",)),
     ("port int8 matmul kernel", ("int8_matmul_wgmma_kernel",)),
     ("port act-quant kernel", ("act_quantize_kernel",)),
-    ("port int8 conv kernel", ("conv3x3_s8_kernel",)),
+    ("port int8 conv kernel", ("conv3x3_s8_kernel", "conv3x3_s8_tma_kernel")),
     ("int8 GEMM (cuBLASLt, _int_mm)", ("s8", "i8", "imma", "int8")),
     ("convolution", ("fprop", "fft", "conv", "dgrad")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),

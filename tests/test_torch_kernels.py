@@ -19,7 +19,11 @@ from sdvar_tpu_torch.ops.kernels.attention import (
     attention_kernel,
     attention_plain,
 )
-from sdvar_tpu_torch.ops.kernels.conv_s8 import conv3x3_s8_kernel, conv3x3_s8_plain
+from sdvar_tpu_torch.ops.kernels.conv_s8 import (
+    conv3x3_s8_kernel,
+    conv3x3_s8_plain,
+    conv_plan,
+)
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import int8_matmul_kernel, int8_matmul_plain
 from sdvar_tpu_torch.ops.kernels.quantize import (
     act_quantize_kernel,
@@ -181,6 +185,67 @@ def test_act_quantize_split_row_modes_match_plain(cuda, M, K, gelu):
         assert torch.equal(s, sp) and d.max().item() == 0
 
 
+@pytest.mark.parametrize("pn", [1, 2, 3, 4, 5, 6, 8, 10, 13, 16])
+def test_act_quantize_kernel_bits_at_the_decode_scales(cuda, pn):
+    """At each scale's M (2B = 32 rows x pn^2) the qkv/proj/fc1 input (K=1920,
+    no GELU) and the 1x2 rank's proj input (K=960, both split-row modes)
+    give the plain version's bits; the fc2 input (K=7680, bf16 bias + GELU)
+    keeps the tolerance above."""
+    g = torch.Generator(device=cuda).manual_seed(pn)
+    M = 32 * pn * pn
+    for K in (1920, 960):
+        x = (torch.randn(M, K, device=cuda, generator=g) * 3).to(torch.bfloat16)
+        q, s = act_quantize_kernel(x, None, False)
+        qp, sp = act_quantize_plain(x, None, False)
+        assert torch.equal(q, qp) and torch.equal(s, sp)
+        assert torch.equal(act_scale_kernel(x, None, False), sp)
+        q2, _ = act_quantize_kernel(x, None, False, scale=sp * 1.5)
+        assert torch.equal(q2, act_quantize_plain(x, None, False, scale=sp * 1.5)[0])
+    x = (torch.randn(M, 7680, device=cuda, generator=g) * 3).to(torch.bfloat16)
+    b = torch.randn(7680, device=cuda, generator=g).to(torch.bfloat16)
+    q, s = act_quantize_kernel(x, b, True)
+    qp, sp = act_quantize_plain(x, b, True)
+    torch.testing.assert_close(s, sp, rtol=1e-6, atol=0)
+    d = (q.int() - qp.int()).abs()
+    assert d.max().item() <= 1 and (d != 0).float().mean().item() < 1e-3
+
+
+def test_act_quantize_kernel_on_ties(cuda):
+    """Rows built on exact half-steps of their scale: every element but the
+    row's amax a rounding tie of h / s (s a power of two, so (k + 0.5) s
+    and 127 s are exact in bf16 and s = amax / 127 exactly), where the
+    reciprocal product must give way to the IEEE quotient."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    e = torch.randint(0, 12, (800, 1), device=cuda, generator=g).float()
+    s = torch.exp2(-e)
+    k = torch.randint(-127, 127, (800, 1920), device=cuda, generator=g).float() + 0.5
+    k[:, 0] = 127.0  # the row's amax
+    x = (k * s).to(torch.bfloat16)
+    assert torch.equal(x.float(), k * s)
+    q, sq = act_quantize_kernel(x, None, False)
+    qp, sqp = act_quantize_plain(x, None, False)
+    assert torch.equal(q, qp) and torch.equal(sq, sqp)
+
+
+def test_act_quantize_kernel_replays_in_a_cuda_graph(cuda):
+    """One launch captured in a CUDA graph and replayed on new inputs gives
+    the eager launch's bits: the kernel allocates nothing and does not
+    synchronise."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = (torch.randn(800, 7680, device=cuda, generator=g) * 3).to(torch.bfloat16)
+    b = torch.randn(7680, device=cuda, generator=g).to(torch.bfloat16)
+    act_quantize_kernel(x, b, True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, s = act_quantize_kernel(x, b, True)
+    x.copy_((torch.randn(800, 7680, device=cuda, generator=g) * 3).to(torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    qe, se = act_quantize_kernel(x, b, True)
+    assert torch.equal(q, qe) and torch.equal(s, se)
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(2, 64, 192), (200, 1920, 272),
                                    (130, 256, 4096)]
@@ -248,6 +313,51 @@ def test_conv3x3_s8_kernel_matches_plain(cuda, out_dtype, B, H, W, C, O):
     want = conv3x3_s8_plain(x8, wk, scale, bias, out_dtype)
     assert got.dtype == out_dtype and got.shape == (B, H, W, O)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [32, 160, 320])
+@pytest.mark.parametrize("O", [160, 320, 640, 200])
+def test_conv3x3_s8_wide_path_matches_plain(cuda, out_dtype, C, O):
+    """The TMA + wgmma path at ragged W (37 against 64-pixel boxes), H=8,
+    the decoder's channel counts and a ragged O (200 against 160-channel
+    tiles), its tail chunks (32 and 64 channels of a tap) included:
+    bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(C + O)
+    B, H, W = 2, 8, 37
+    x8 = torch.randint(-127, 128, (B, H, W, C), device=cuda, generator=g,
+                       dtype=torch.int8)
+    wk = torch.randint(-127, 128, (O, 3, 3, C), device=cuda, generator=g,
+                       dtype=torch.int8)
+    scale = torch.rand(O, device=cuda, generator=g) * 2e-3
+    bias = torch.randn(O, device=cuda, generator=g)
+    assert conv_plan(B, H, W, C, O)["path"] == "tma"
+    got = conv3x3_s8_kernel(x8, wk, scale, bias, out_dtype)
+    assert torch.equal(got, conv3x3_s8_plain(x8, wk, scale, bias, out_dtype))
+
+
+def test_conv3x3_s8_kernel_replays_in_a_cuda_graph(cuda):
+    """One wide-path launch captured in a CUDA graph (after an eager one,
+    which sets the kernel's shared-memory limit) and replayed on new x gives
+    the eager launch's bits."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    B, H, W, C, O = 4, 64, 64, 160, 160
+    x8 = torch.randint(-127, 128, (B, H, W, C), device=cuda, generator=g,
+                       dtype=torch.int8)
+    wk = torch.randint(-127, 128, (O, 3, 3, C), device=cuda, generator=g,
+                       dtype=torch.int8)
+    scale = torch.rand(O, device=cuda, generator=g) * 2e-3
+    bias = torch.randn(O, device=cuda, generator=g)
+    conv3x3_s8_kernel(x8, wk, scale, bias)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = conv3x3_s8_kernel(x8, wk, scale, bias)
+    x8.copy_(torch.randint(-127, 128, x8.shape, device=cuda, generator=g,
+                           dtype=torch.int8))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, conv3x3_s8_kernel(x8, wk, scale, bias))
 
 
 def test_conv3x3_s8_kernel_refuses_what_it_does_not_take(cuda):
