@@ -24,7 +24,8 @@ modes, the serving bench and the int8 matmul microbenchmark (the fused
 W8A8 kernel's path). It checks the outputs and the
 kernel launch counts of each path, holds small stacks on the card against
 the CPU plain path, times the three pixel decoders and the kernels (the
-act-quant and conv kernels also replayed in CUDA graphs, and the W8A8
+act-quant, conv, sampler and fused W8A8 kernels also replayed in CUDA
+graphs, and the W8A8
 pixel decode held bit for bit against the same decode with the plain conv
 on the card). The
 last stdout line is ``{"ok": true, "device": {...}}``; any failed phase
@@ -35,6 +36,7 @@ JAX.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import math
@@ -106,6 +108,7 @@ from sdvar_tpu_torch.ops.kernels.quantize import (
     act_scale_plain,
     quant_plan,
 )
+from sdvar_tpu_torch.ops.kernels import sampling as SMP
 from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
 from sdvar_tpu_torch.ops.kernels.scale_probe import (
     scale_probe_kernel,
@@ -119,6 +122,7 @@ from sdvar_tpu_torch.ops.partition import (
     set_tp_mesh,
     sharded_scale_probe,
 )
+from sdvar_tpu_torch.ops.kernels import w8a8_fused as FUSED
 from sdvar_tpu_torch.ops.kernels.w8a8_fused import (
     w8a8_fused_kernel,
     w8a8_fused_plain,
@@ -215,10 +219,10 @@ def attention_bound(Bq, Lq, Lk, H, hd, itemsize):
 
 
 def sampler_bound(M, V, n_topk):
-    """(bound ms, bound_by) of the sampling function, not of this kernel's
-    bisection: the logits and row seeds read once and the ids written once,
-    vs the operations the function needs, all priced at the int32 rate (the
-    slowest of its types). Per logit, one radix-select pass finds the top-k
+    """(bound ms, bound_by) of the sampling function, not of any one
+    kernel's design: the logits and row seeds read once and the ids written
+    once, vs the operations the function needs, all priced at the int32
+    rate (the slowest of its types). Per logit, one radix-select pass finds the top-k
     threshold (ordered image, digit, count: 4). Per logit that top-k keeps
     (``n_topk``, counted on this run's data): the exp and sum for the
     nucleus (3), one radix-select pass on the masses (4), the row hash and
@@ -308,6 +312,53 @@ def w8a8_fused_bound(M, K, N, s8):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def fused_plan_checks():
+    """w8a8_plan's shared memory and scratch are what the CUDA source
+    takes, at every FUSED_SHAPES shape and form; the ptxas report of the
+    four instances."""
+    lib = _build.load("w8a8_fused")
+    lib.sdvar_w8a8_fused_scratch_bytes.argtypes = [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.sdvar_w8a8_fused_scratch_bytes.restype = ctypes.c_longlong
+    lib.sdvar_w8a8_fused_smem_bytes.argtypes = []
+    lib.sdvar_w8a8_fused_smem_bytes.restype = ctypes.c_int
+    for L, K, N, tag in FUSED_SHAPES:
+        for s8 in (True, False):
+            M = microbench_int8_matmul.B * L
+            plan = FUSED.w8a8_plan(M, K, N, s8)
+            got = lib.sdvar_w8a8_fused_scratch_bytes(M, N, K, int(s8))
+            if got != plan["scratch_bytes"]:
+                raise AssertionError(f"w8a8_plan's scratch {plan['scratch_bytes']} "
+                                     f"!= the source's {got} at {tag} s8={s8}")
+            if lib.sdvar_w8a8_fused_smem_bytes() != plan["smem_bytes"]:
+                raise AssertionError("w8a8_plan's shared memory differs from the source's")
+    plan = FUSED.w8a8_plan(8192, 1920, 7680, True)
+    log(f"[build] w8a8_fused at fc1 s9: grid {plan['grid']}, {plan['tiles']} "
+        f"tiles of {FUSED.TILE_M}x{FUSED.TILE_N}, {plan['units']} quantization "
+        f"units, {FUSED.STAGES} stages, {plan['smem_bytes']} B dynamic shared "
+        f"memory, {plan['scratch_bytes']} B scratch (equal to the source's); "
+        "ptxas " + "; ".join(
+            f"{x} s8={s8}: " + _kernel_ptxas(
+                "w8a8_fused", f"w8a8_fused_kernelI{m}Lb{int(s8)}E")
+            for x, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
+            for s8 in (True, False)))
+
+
+def sampler_plan_checks():
+    """sampler_plan's shared memory is what the CUDA source gives a launch,
+    at the decode's V, the widest V and narrow ones; the ptxas report."""
+    for V in (64, 1000, 2048, 4096, 8192):
+        plan = SMP.sampler_plan(4096, V)
+        got = SMP.smem_bytes(V, plan["threads"])
+        if got != plan["smem_bytes"]:
+            raise AssertionError(f"sampler_plan reserves {plan['smem_bytes']} B "
+                                 f"at V={V}, the source {got}")
+    plan = SMP.sampler_plan(4096, 4096)
+    log(f"[build] sampler at V=4096: {plan['threads']} threads a row, "
+        f"{plan['smem_bytes']} B dynamic shared memory (equal to the "
+        f"source's); ptxas {_kernel_ptxas('sampler', 'sample_kernel')}")
+
+
 def phase_device_and_build():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -318,7 +369,7 @@ def phase_device_and_build():
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.time()
     sources = ("attention", "matmul_int8", "conv_s8", "w8a8_fused",
-               "scale_probe", "act_quant")
+               "scale_probe", "act_quant", "sampler")
     _build.build(sources)  # one nvcc each, all started together
     log(f"[build] {', '.join(f'csrc/{s}.cu' for s in sources)} built in "
         f"{time.time() - t0:.1f} s")
@@ -347,6 +398,16 @@ def phase_device_and_build():
             raise AssertionError("a wide conv3x3_s8 kernel has no GMMA in its SASS")
     if CONV.smem_bytes() != CONV.TMA_SMEM:
         raise AssertionError("conv_plan's shared memory differs from the source's")
+    # the fused W8A8 kernel runs on the tensor cores through s8 and bf16
+    # wgmma (IGMMA and HGMMA: both hold "GMMA") in every instance
+    fused_gmma = sass_hgmma("w8a8_fused", "GMMA")
+    if fused_gmma is not None:
+        log("[build] w8a8_fused SASS, GMMA instructions per kernel: " + ", ".join(
+            f"{k}: {n}" for k, n in fused_gmma.items()))
+        if not fused_gmma or min(fused_gmma.values()) == 0:
+            raise AssertionError("a w8a8_fused kernel has no GMMA in its SASS")
+    fused_plan_checks()
+    sampler_plan_checks()
     log(f"[build] conv3x3_s8 wide path: ptxas {conv_ptxas()}; "
         f"{CONV.TMA_SMEM} B dynamic shared memory ({CONV.TMA_STAGES} stages, "
         f"equal to conv_plan's); act_quantize fc2 instance (bf16, 2 loads a "
@@ -535,28 +596,65 @@ def phase_kernel_checks():
 
     M, V = 4096, 4096
     logits = torch.randn(M, V, device=dev, generator=g) * 4
+    # tie and extreme rows: a 10-way tie above and a tie at the k=15 edge,
+    # all-equal rows (0.25, -0.0), +-3e38 with +-0.0 and 1e-38, a row of
+    # -3e38 with one -1e-38, runs of +0.0 and -0.0 beside +-3e38
+    logits[0] = -5.0
+    logits[0, :10], logits[0, 10:20] = 3.0, 1.0
+    logits[1], logits[2] = 0.25, -0.0
+    logits[3, :4] = torch.tensor([3e38, -3e38, 0.0, -0.0])
+    logits[3, 4:8] = 1e-38
+    logits[4] = -3e38
+    logits[4, 17] = -1e-38
+    logits[5, :2] = torch.tensor([3e38, -3e38])
+    logits[5, 8:600], logits[5, 600:1200] = 0.0, -0.0
     noise = -torch.log(-torch.log(
         torch.rand(M, V, device=dev, generator=g).clamp_(1e-7, 1 - 1e-7)))
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (M,), device=dev,
                           generator=g, dtype=torch.int32)
     smp = {}
-    for top_k, top_p in ((900, 0.96), (900, 0.0), (1, 0.0)):
-        ids, mask = sample_kernel(logits, None, top_k, top_p, noise=noise,
-                          return_mask=True)
-        ids_p, mask_p = sample_plain(logits, None, top_k, top_p, noise=noise,
-                              return_mask=True)
-        rows = ((mask == mask_p).all(-1) & (ids == ids_p)).float().mean().item()
-        hashed = (sample_kernel(logits, seeds, top_k, top_p)
-                  == sample_plain(logits, seeds, top_k, top_p)).float().mean().item()
-        need = 1.0 if top_p == 0.0 else 0.999
-        ok = rows >= need and hashed >= 0.999
-        log(f"[check] sampler top_k={top_k} top_p={top_p}: rows equal with "
-            f"noise {rows:.6f} (need {need}), ids equal on the row-hash path "
-            f"{hashed:.6f} (need 0.999) {'ok' if ok else 'FAIL'}")
+    # M = 4096 rows (the decode's scale 9) and M = 100
+    for rows in (M, 100):
+        lg, nz, sd = logits[:rows], noise[:rows], seeds[:rows]
+        for top_k, top_p in ((900, 0.96), (900, 0.0), (1, 0.0), (15, 0.0),
+                             (4095, 0.0), (0, 0.9), (15, 0.5)):
+            ids, mask = sample_kernel(lg, None, top_k, top_p, noise=nz,
+                                      return_mask=True)
+            ids_p, mask_p = sample_plain(lg, None, top_k, top_p, noise=nz,
+                                         return_mask=True)
+            equal = (mask == mask_p).all(-1) & (ids == ids_p)
+            rows_eq, odd_eq = equal.float().mean().item(), bool(equal[:6].all())
+            hashed = (sample_kernel(lg, sd, top_k, top_p)
+                      == sample_plain(lg, sd, top_k, top_p)).float().mean().item()
+            need = 1.0 if top_p == 0.0 else 0.999
+            ok = rows_eq >= need and hashed >= 0.999 and (top_p != 0.0 or odd_eq)
+            log(f"[check] sampler M={rows} top_k={top_k} top_p={top_p}: rows "
+                f"equal with noise {rows_eq:.6f} (need {need}; the six tie and "
+                f"extreme rows {'equal' if odd_eq else 'not all equal'}), ids "
+                f"equal on the row-hash path {hashed:.6f} (need 0.999) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"sampler kernel disagrees at M={rows} "
+                                     f"{top_k}/{top_p}")
+            if rows == M:
+                smp[(top_k, top_p)] = ((mask.int() - mask_p.int()).abs().max().item(),
+                                       rows_eq, hashed)
+    # a CUDA graph of one launch replays the eager bits (no host sync, no
+    # allocation in the kernel)
+    for rows in (M, 16):
+        lg, sd = logits[:rows], seeds[:rows]
+        eager = sample_kernel(lg, sd, 900, 0.96)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = sample_kernel(lg, sd, 900, 0.96)
+        replayed.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = torch.equal(replayed, eager)
+        log(f"[check] sampler M={rows} in a CUDA graph: replay bit-equal to "
+            f"eager {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"sampler kernel disagrees at {top_k}/{top_p}")
-        smp[(top_k, top_p)] = ((mask.int() - mask_p.int()).abs().max().item(),
-                               rows, hashed)
+            raise AssertionError("sampler graph replay differs from eager")
     return errs, smp
 
 
@@ -968,7 +1066,7 @@ def phase_quant_path(name):
         f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     labels = [torch.arange(B) * 61 % 1000, torch.arange(B) * 7 + 100,
               torch.full((B,), 207)]
-    # warm-up (the sampler compiles here, the CUDA kernels load)
+    # warm-up (the CUDA kernels load)
     generate_images(var_cfg, vae_cfg, params, vae, labels[0], 0, samp,
                     kv_mode="int8")
     torch.cuda.synchronize()
@@ -1054,7 +1152,7 @@ def phase_main_path(name):
     labels = [torch.arange(B) * 61 % 1000, torch.arange(B) * 7 + 100,
               torch.full((B,), 207)]
     seeds = [1, 2, 3]
-    # warm-up (Triton compiles the main-path specialisation here)
+    # warm-up (the CUDA kernels load and set their shared-memory limits)
     generate_images(var_cfg, vae_cfg, params, vae, labels[0], 0, samp)
     torch.cuda.synchronize()
 
@@ -1513,19 +1611,37 @@ def phase_kernel_times(launches, errs, smp):
     logits = torch.randn(M, V, device=dev, generator=g) * 4
     seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (M,), device=dev,
                           generator=g, dtype=torch.int32)
+    # ms, plain_ms and the ten scales' total at the host's pace (cuda_ms),
+    # one method for the kernel and its plain version; the device-paced
+    # times (device_ms) beside them
     s_ms = cuda_ms(lambda: sample_kernel(logits, seeds, 900, 0.96), 50)
+    s_dev = device_ms(lambda: sample_kernel(logits, seeds, 900, 0.96), 50)
     s_plain = cuda_ms(lambda: sample_plain(logits, seeds, 900, 0.96), 5, warmup=1)
     n_topk = sample_plain(logits, seeds, 900, 0.0, return_mask=True)[1].sum()
     s_bound, s_by = sampler_bound(M, V, n_topk.item())
-    s_total = 0.0
-    for pn in (1, 2, 3, 4, 5, 6, 8, 10, 13, 16):
+    s_scales, s_scales_dev = [], []
+    for pn in PNS:  # each scale's rows
         lg, sd = logits[: B * pn * pn], seeds[: B * pn * pn]
-        s_total += cuda_ms(lambda: sample_kernel(lg, sd, 900, 0.96), 10)
+        s_scales.append(cuda_ms(lambda: sample_kernel(lg, sd, 900, 0.96), 10))
+        s_scales_dev.append(device_ms(lambda: sample_kernel(lg, sd, 900, 0.96), 50))
+    lg, sd = logits[:B], seeds[:B]
+    for _ in range(20):
+        sample_kernel(lg, sd, 900, 0.96)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(500):
+        sample_kernel(lg, sd, 900, 0.96)
+    torch.cuda.synchronize()
+    s_host0 = (time.perf_counter() - t0) * 1e3 / 500
     log(f"[time] sampler scale 9 (M=4096 V=4096 top_k=900 top_p=0.96): "
-        f"kernel_ms {s_ms:.4f} plain_ms {s_plain:.4f} library_ms none "
-        f"bound_ms {s_bound:.4f} ({s_by}) launches/decode "
-        f"{launches['sampler'] // N_BATCHES}; all 10 scales {s_total:.3f} ms "
-        f"per decode")
+        f"kernel_ms {s_ms:.4f} (device-paced {s_dev:.4f}) plain_ms "
+        f"{s_plain:.4f} library_ms none bound_ms {s_bound:.4f} ({s_by}) "
+        f"launches/decode {launches['sampler'] // N_BATCHES}; all 10 scales "
+        f"{sum(s_scales):.4f} ms per decode; the ten scales (M = 16 pn^2, "
+        f"device-paced) {' '.join(f'{x:.4f}' for x in s_scales_dev)} ms, "
+        f"{sum(s_scales_dev):.4f} ms per decode; scale 0 host-paced "
+        f"{s_host0:.4f} ms per call")
+    del logits, seeds
 
     # INT8-KV attention: int8 cache slices and their scale planes
     vals, scales = _int8_cache(Bq, Lmax, H * hd, g)
@@ -1643,14 +1759,17 @@ def phase_kernel_times(launches, errs, smp):
          "max_abs_err": errs[(torch.bfloat16, 256, 680)],
          "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
          "bound_by": a_by, "library_ms": a_lib},
-        {"name": "sampler", "route": "triton",
-         "source": "sdvar_tpu_torch/ops/kernels/sampling.py",
+        {"name": "sampler", "route": "cuda",
+         "source": "sdvar_tpu_torch/csrc/sampler.cu",
          "replaces": "sdvar_tpu/ops/pallas/sampling.py:79",
          "launches": launches["sampler"],
          "max_abs_err": float(smp[(900, 0.96)][0]),
          "rows_equal": smp[(900, 0.96)][1],
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
-         "bound_by": s_by, "library_ms": None},
+         "bound_by": s_by, "library_ms": None, "decode_ms": sum(s_scales),
+         "device_ms": s_dev, "scales_device_ms": s_scales_dev,
+         "decode_device_ms": sum(s_scales_dev),
+         "host_paced_scale0_ms": s_host0},
         {"name": "attention_int8", "route": "cuda",
          "source": "sdvar_tpu_torch/csrc/attention.cu",
          "replaces": "sdvar_tpu/ops/pallas/attention.py:54",
@@ -2157,6 +2276,19 @@ def phase_fused_checks():
             if not ok:
                 raise AssertionError(f"w8a8_fused kernel disagrees: {tag} s8={s8}")
             errs[("w8a8_fused", s8, tag)] = err
+            if tag in ("fc1 s9", "fc1 s4"):  # a CUDA graph replays the eager bits
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    replayed = w8a8_fused_kernel(x, wq, ws, s8)
+                replayed.zero_()
+                graph.replay()
+                torch.cuda.synchronize()
+                ok = torch.equal(replayed, got)
+                log(f"[check] w8a8_fused {'s8' if s8 else 'bf16'} {tag} in a CUDA "
+                    f"graph: replay bit-equal to eager {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("w8a8_fused graph replay differs from eager")
+                del graph, replayed
         del x, wq, ws, got, want
     torch.cuda.empty_cache()
     return errs
@@ -2331,6 +2463,16 @@ def phase_microbench(errs):
         raise AssertionError(f"[micro] w8a8_fused launched "
                              f"{launches['w8a8_fused']} times, want {n}")
     by = {r["shape"]: r for r in rows}
+    shapes = {}
+    for r in rows:  # the six shapes: the fused forms beside the library calls
+        shapes[r["shape"]] = {"ms": r["pl_s8"]["ms"], "bf16_form_ms": r["pl_bf16"]["ms"],
+                              "int_mm_ms": r["int8_int32"]["ms"],
+                              "w8a8_matmul_ms": r["w8a8_s8"]["ms"]}
+        log(f"[time] w8a8_fused {r['shape']} (L={r['L']} K={r['K']} N={r['N']}): "
+            f"s8 {r['pl_s8']['ms']:.4f} ms, bf16 form {r['pl_bf16']['ms']:.4f} ms; "
+            f"torch._int_mm {r['int8_int32']['ms']:.4f} ms, w8a8_matmul "
+            f"{r['w8a8_s8']['ms']:.4f} ms; fused s8 faster than w8a8_matmul: "
+            f"{r['pl_s8']['ms'] < r['w8a8_s8']['ms']}")
     line = {}
     for tag in ("fc1 s9", "fc2 s9"):
         r = by[tag]
@@ -2359,7 +2501,7 @@ def phase_microbench(errs):
             "replaces": "tools/microbench_int8_matmul.py:42",
             "launches": launches["w8a8_fused"],
             "max_abs_err": errs[("w8a8_fused", True, "fc1 s9")],
-            **fc1, "fc2_s9": line["fc2 s9"]}
+            **fc1, "fc2_s9": line["fc2 s9"], "shapes": shapes}
 
 
 # ---------------------------------------------------------------------------

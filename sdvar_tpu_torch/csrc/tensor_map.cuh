@@ -1,5 +1,5 @@
 // Host side of the tensor-memory-accelerator (TMA) loads shared by the
-// port's Hopper kernels, matmul_int8.cu and conv_s8.cu: libcuda's
+// port's Hopper kernels, matmul_int8.cu, conv_s8.cu and w8a8_fused.cu: libcuda's
 // cuTensorMapEncodeTiled, reached through the runtime (nothing more to
 // link), which encodes the tensor map a kernel's cp.async.bulk.tensor
 // loads read.

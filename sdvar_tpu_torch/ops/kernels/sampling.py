@@ -1,36 +1,57 @@
-"""Fused top-k / top-p / Gumbel-max sampler: the Triton kernel's wrapper and
-its plain version.
+"""Fused top-k / top-p / Gumbel-max sampler: the CUDA kernel's wrapper, its
+launch geometry and its plain version.
 
 Replaces the TPU kernel ``sdvar_tpu/ops/pallas/sampling.py:_kernel``
 (reached through ``fused_sample``) with its per-row-seed noise. Same
 semantics, bit for bit where integer arithmetic decides:
 
-  - the top-k threshold is the largest t with count(u >= t) >= k, found by
-    32-step bisection on the ordered int32 image u of the f32 bits; ties at
+  - the top-k threshold is the largest t with count(u >= t) >= k on the
+    ordered int32 image u of the f32 bits, i.e. the k-th largest u; ties at
     the threshold are kept;
   - the nucleus threshold over the kept set is the largest t with
-    mass(u > t) >= top_p * Z, by the same bisection on exp-masses; the
-    argmax is always kept;
+    mass(u > t) >= top_p * Z; the argmax is always kept;
   - Gumbel noise is -log(-log(u01)) with u01 = b24 * 2^-24 + 2^-25 from the
     murmur3 row hash of (row seed, column), or an explicit ``noise`` input.
 
-Bound on this card: one read of the (M, V) f32 logits (67 MB at the
-256px scale-9 shape M = V = 4096, ~20 us at 3.35 TB/s). The function
-itself needs only a few operations per logit (a radix select finds the
-same exact thresholds in a few passes, and the noise is needed only for
-the kept set), so memory bounds it; the 64 bisection passes of this
-kernel cost about 180 operations per logit and make it compute-bound in
-practice. Design: one Triton program per row holds the whole 4096-wide row
-in registers across all 64 passes, so the logits are read from device
-memory once; the TPU's (bm, V) VMEM row blocks are not carried over.
+The plain version finds both thresholds by 32-step bisection, as the TPU
+kernel does. The kernel (``sdvar_tpu_torch/csrc/sampler.cu``, CUDA C++ for
+sm_90a, loaded with ctypes) finds the same values with one block a row,
+the row in shared memory: 2048 bins linear in x over the participants'
+range (``LINEAR_BINS``: 32 coarse bins, top-k's counted in per-thread byte
+counters, the nucleus's masses by integer atomics; then the chosen coarse
+bin's 64 fine bins), a warp scan for the bin where the weight from the top
+reaches the target, then an exact ranking of that bin's few elements by
+their ordered keys (a crowded bin: ``RADIX_DIGITS`` radix passes). For
+top-k the weight is 1 and the target k, so the mask is bit-equal to the
+plain version's. The nucleus runs over the kept columns, set aside: the
+weight of a column is exp(x - max) as an integer with ``MASS_BITS``
+fractional bits and the target ceil(top_p * sum); the sums are exact
+integers in no order (the same bits every run), where the plain version
+sums in f32, so a row whose mass lands within an f32 step of the threshold
+may differ. The noise is drawn only for the kept columns.
+
+Bound on this card: one read of the (M, V) f32 logits (67 MB at the 256px
+scale-9 shape M = V = 4096, 0.020 ms at 3.35 TB/s); the function needs a
+few integer operations a logit for the top-k threshold and about 25 a kept
+logit for the rest, so memory bounds it. Geometry: :func:`sampler_plan`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
 import torch
+
+from sdvar_tpu_torch.ops.kernels import _build
+
+LINEAR_BINS = (32, 64)       # the select's coarse bins and fine bins in each
+CANDIDATES = 128             # a fine bin of at most this many is ranked directly
+RADIX_DIGITS = (8, 8, 8, 8)  # a crowded bin's radix passes, MSB first
+MASS_BITS = 50               # fixed-point fraction bits of the nucleus masses
+MAX_V = 8192                 # the widest row the kernel holds in shared memory
+MAX_THREADS = 256
 
 _MASK32 = 0xFFFFFFFF
 _INT32_MIN = -(2 ** 31)
@@ -116,114 +137,101 @@ def sample_plain(logits: torch.Tensor, row_seeds: Optional[torch.Tensor],
     return ids
 
 
-@functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    """Build the Triton kernel on first use (triton is imported here, never
-    at module import: it exists only on the machine with the card)."""
-    import triton
-    import triton.language as tl
+@functools.lru_cache(maxsize=1024)
+def sampler_plan(M: int, V: int) -> dict:
+    """The kernel's launch geometry: one block a row (``grid`` = M) of
+    ``threads`` (a power of two, 32-256: one 16-byte chunk of the row a
+    thread up to 256 threads, further chunks threads apart, so a thread
+    holds at most 32 values, as top-k's byte counters need) and the
+    dynamic shared memory: the row and the columns top-k keeps (4V bytes
+    each; or top-k's byte counters, 32 rows of threads + 4, if more), the
+    fallback's radix
+    histogram (2^8 bins and one pad slot a thread, 8 bytes each), the
+    ranked candidates (key and weight) and the coarse bins' per-warp
+    weights. Raises on a row the kernel does not take: V > 8192 or
+    V % 4 != 0."""
+    if V < 4 or V > MAX_V or V % 4:
+        raise ValueError(f"sampler kernel: V={V} must be a multiple of 4 "
+                         f"from 4 to {MAX_V}")
+    if M < 1 or M > 2 ** 31 - 1:
+        raise ValueError(f"sampler kernel: M={M} rows")
+    vec = V // 4
+    threads = min(MAX_THREADS, max(32, 1 << (vec - 1).bit_length()))
+    kept = max(4 * V, LINEAR_BINS[0] * (threads + 4))  # or top-k's counters
+    smem = (4 * V + kept + ((1 << RADIX_DIGITS[0]) + threads) * 8
+            + CANDIDATES * (4 + 8) + threads // 32 * LINEAR_BINS[0] * 8)
+    return {"grid": M, "threads": threads, "smem_bytes": smem}
 
-    try:
-        from triton.language.extra import libdevice
-    except ImportError:  # older layout
-        from triton.language.extra.cuda import libdevice
 
-    @triton.jit
-    def fused_sample_kernel(x_ptr, seed_ptr, noise_ptr, ids_ptr, mask_ptr,
-                            V, top_k, top_p,
-                            DO_TOPK: tl.constexpr, DO_TOPP: tl.constexpr,
-                            HAS_NOISE: tl.constexpr, WRITE_MASK: tl.constexpr,
-                            BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        valid = cols < V
-        x = tl.load(x_ptr + row * V + cols, mask=valid, other=0.0)
-        ib = x.to(tl.int32, bitcast=True)
-        u = tl.where(ib >= 0, ib, ib ^ 0x7FFFFFFF)
-        u = tl.where(valid, u, -2147483647 - 1)
-        keep = valid
-        if DO_TOPK:
-            lo = tl.zeros([1], dtype=tl.int32) - 2147483647 - 1
-            hi = tl.zeros([1], dtype=tl.int32) + 2147483647
-            for _ in range(32):
-                mid = (lo & hi) + ((lo ^ hi) >> 1)
-                cnt = tl.sum(((u >= mid) & valid).to(tl.int32), axis=0)
-                ge = cnt >= top_k
-                lo = tl.where(ge, mid, lo)
-                hi = tl.where(ge, hi, mid)
-            keep = keep & (u >= lo)
-        if DO_TOPP:
-            m = tl.max(tl.where(keep, x, -1e30), axis=0)
-            e = tl.where(keep, libdevice.exp(x - m), 0.0)
-            pZ = top_p * tl.sum(e, axis=0)
-            lo = tl.zeros([1], dtype=tl.int32) - 2147483647 - 1
-            hi = tl.zeros([1], dtype=tl.int32) + 2147483647
-            for _ in range(32):
-                mid = (lo & hi) + ((lo ^ hi) >> 1)
-                mass = tl.sum(tl.where(u > mid, e, 0.0), axis=0)
-                ge = mass >= pZ
-                lo = tl.where(ge, mid, lo)
-                hi = tl.where(ge, hi, mid)
-            umax = tl.max(u, axis=0)
-            keep = keep & ((u > lo) | (u == umax))
-        if WRITE_MASK:
-            tl.store(mask_ptr + row * V + cols, keep.to(tl.int8), mask=valid)
-        if HAS_NOISE:
-            g = tl.load(noise_ptr + row * V + cols, mask=valid, other=0.0)
-        else:
-            seed = tl.load(seed_ptr + row).to(tl.uint32, bitcast=True)
-            h = seed + cols.to(tl.uint32) * 0x9E3779B9
-            h = h ^ (h >> 16)
-            h = h * 0x85EBCA6B
-            h = h ^ (h >> 13)
-            h = h * 0xC2B2AE35
-            h = h ^ (h >> 16)
-            b24 = ((h >> 8) & 0xFFFFFF).to(tl.float32)
-            u01 = b24 * 5.9604644775390625e-08 + 2.9802322387695312e-08
-            g = -libdevice.log(-libdevice.log(u01))
-        score = tl.where(keep, x + g, -1e30)
-        tl.store(ids_ptr + row, tl.argmax(score, axis=0).to(tl.int32))
+@functools.lru_cache(maxsize=1)
+def _lib():
+    fn = _build.load("sampler").sdvar_sample
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, P, ctypes.c_longlong, I, I, ctypes.c_float, I, P]
+    fn.restype = ctypes.c_int
+    return fn
 
-    return fused_sample_kernel
+
+def smem_bytes(V: int, threads: int) -> int:
+    """The dynamic shared memory the CUDA source gives a launch (to hold
+    :func:`sampler_plan` to it)."""
+    fn = _build.load("sampler").sdvar_sample_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(V, threads)
+
+
+def _aligned(t: torch.Tensor, what: str) -> torch.Tensor:
+    """t, contiguous; raise unless its base is 16-byte aligned."""
+    if not t.is_contiguous():
+        t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"sample_kernel: {what} must be 16-byte aligned")
+    return t
 
 
 def sample_kernel(logits: torch.Tensor, row_seeds: Optional[torch.Tensor],
                   top_k: int = 0, top_p: float = 0.0,
                   noise: Optional[torch.Tensor] = None,
                   return_mask: bool = False):
-    """Launch the Triton kernel on CUDA tensors; same contract as
-    :func:`sample_plain`. Adds one to ``sample_kernel.launches`` per
-    launch."""
+    """Launch the CUDA kernel on CUDA tensors; same contract as
+    :func:`sample_plain`. Raises on anything it does not take (it never
+    falls back to the plain version). Adds one to
+    ``sample_kernel.launches`` per launch. The host path is kept short: at
+    the decode's first scales the launch, not the card, sets the pace."""
     if not logits.is_cuda:
         raise ValueError("sample_kernel: logits must be a CUDA tensor")
     if logits.dim() != 2 or logits.dtype != torch.float32:
         raise ValueError("sample_kernel: logits must be (M, V) float32, got "
                          f"{tuple(logits.shape)} {logits.dtype}")
-    logits = logits.contiguous()
     M, V = logits.shape
+    plan = sampler_plan(M, V)
+    logits = _aligned(logits, "logits")
+    device = logits.device
+    seeds_ptr = noise_ptr = None
     if noise is not None:
-        if noise.shape != logits.shape or noise.device != logits.device:
+        if noise.shape != logits.shape or noise.device != device:
             raise ValueError("sample_kernel: noise must match logits")
-        noise = noise.float().contiguous()
-        seeds = torch.empty((1,), dtype=torch.int32, device=logits.device)
+        noise = _aligned(noise.float(), "noise")
+        noise_ptr = noise.data_ptr()
     else:
         if (row_seeds is None or row_seeds.shape != (M,)
                 or row_seeds.dtype != torch.int32
-                or row_seeds.device != logits.device):
+                or row_seeds.device != device):
             raise ValueError("sample_kernel: row_seeds must be (M,) int32 on "
                              "the logits' device")
-        seeds = row_seeds.contiguous()
-    ids = torch.empty((M,), dtype=torch.int32, device=logits.device)
-    mask = (torch.empty((M, V), dtype=torch.int8, device=logits.device)
-            if return_mask else ids)
-    block = 1 << max(V - 1, 1).bit_length()
-    _triton_kernel()[(M,)](
-        logits, seeds, noise if noise is not None else logits, ids, mask,
-        V, int(top_k), float(top_p),
-        DO_TOPK=0 < top_k < V, DO_TOPP=0.0 < top_p < 1.0,
-        HAS_NOISE=noise is not None, WRITE_MASK=return_mask,
-        BLOCK=block, num_warps=8,
-    )
+        if not row_seeds.is_contiguous():
+            row_seeds = row_seeds.contiguous()
+        seeds_ptr = row_seeds.data_ptr()
+    ids = torch.empty((M,), dtype=torch.int32, device=device)
+    mask = (torch.empty((M, V), dtype=torch.int8, device=device)
+            if return_mask else None)
+    err = _lib()(logits.data_ptr(), seeds_ptr, noise_ptr, ids.data_ptr(),
+                 None if mask is None else mask.data_ptr(), M, V, int(top_k),
+                 float(top_p), plan["threads"],
+                 torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"sample_kernel: launch failed with cudaError {err}")
     sample_kernel.launches += 1
     if return_mask:
         return ids, mask

@@ -1,7 +1,7 @@
 """Top-k / top-p sampling through the fused sampler, CFG batch helpers and
 per-request seed streams (``request_seeds``, ``fold_seeds``, ``row_seeds``).
 
-Sampling always goes through the fused sampler (Triton kernel on the card,
+Sampling always goes through the fused sampler (CUDA kernel on the card,
 its plain version on the CPU) with one seed per row. A row's seed depends
 only on (request seed, scale, position within the scale), the counterpart
 of the JAX package's ``fold_key(key, si)`` + ``_row_seeds_from_keys``: a
@@ -71,7 +71,7 @@ def sample_with_top_k_top_p(logits_BlV: torch.Tensor, seeds: torch.Tensor,
     """Sample (B, l) int32 ids from (B, l, V) logits with top-k / top-p
     filtering and Gumbel-max; ``seeds`` holds one int32 seed per row
     (B*l,), see :func:`row_seeds`. Through the fused sampler
-    (``ops.partition.sharded_fused_sample``: the Triton kernel for CUDA
+    (``ops.partition.sharded_fused_sample``: the CUDA kernel for CUDA
     tensors, its plain version for CPU tensors); under a mesh the logits
     are this rank's rows and vocab columns, gathered over "model" first."""
     B, l, V = logits_BlV.shape

@@ -35,6 +35,18 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+PACKAGE_FILES = sorted((REPO / "sdvar_tpu_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", PACKAGE_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_triton_imports_in_the_package(path):
+    """Every kernel of the port is CUDA C++ loaded with ctypes: no module
+    imports triton, at its top or inside a function."""
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] == "triton"]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys; sys.path.insert(0, sys.argv[1]);"

@@ -78,11 +78,13 @@ def test_attention_kernel_bias_and_masked_row(cuda):
     assert not got[:, -1].any()
 
 
+@pytest.mark.parametrize("M", [16, 100, 512, 4096])
 @pytest.mark.parametrize("top_k,top_p", [(900, 0.96), (900, 0.0), (1, 0.0),
                                          (0, 0.9)])
-def test_sampler_kernel_matches_plain(cuda, top_k, top_p):
+def test_sampler_kernel_matches_plain(cuda, top_k, top_p, M):
+    """M from the decode's first scale (16 rows) to its last (4096)."""
     g = torch.Generator(device=cuda).manual_seed(top_k)
-    M, V = 512, 4096
+    V = 4096
     logits = torch.randn(M, V, device=cuda, generator=g) * 4
     noise = -torch.log(-torch.log(torch.rand(M, V, device=cuda, generator=g)))
     ids, mask = sample_kernel(logits, None, top_k, top_p, noise=noise,
@@ -96,6 +98,99 @@ def test_sampler_kernel_matches_plain(cuda, top_k, top_p):
     agree = sample_kernel(logits, seeds, top_k, top_p) == sample_plain(
         logits, seeds, top_k, top_p)
     assert agree.float().mean() >= 0.999
+
+
+def _odd_rows(dev):
+    """Tie and extreme rows: a 10-way tie above and a tie at the k=15 edge,
+    all-equal rows (0.25, -0.0), +-3e38 with +-0.0 and 1e-38, a row of
+    -3e38 with one -1e-38, runs of +0.0 and -0.0 beside +-3e38."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(8, 4096, device=dev, generator=g)
+    x[0] = -5.0
+    x[0, :10], x[0, 10:20] = 3.0, 1.0
+    x[1], x[2] = 0.25, -0.0
+    x[3, :4] = torch.tensor([3e38, -3e38, 0.0, -0.0])
+    x[3, 4:8] = 1e-38
+    x[4] = -3e38
+    x[4, 17] = -1e-38
+    x[5, :2] = torch.tensor([3e38, -3e38])
+    x[5, 8:600], x[5, 600:1200] = 0.0, -0.0
+    return x
+
+
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("top_k,top_p", [(1, 0.0), (15, 0.0), (900, 0.0),
+                                         (4095, 0.0), (15, 0.5), (0, 0.9),
+                                         (100, 0.9)])
+def test_sampler_kernel_on_tie_and_extreme_rows(cuda, top_k, top_p, M):
+    """The odd rows (with normal rows around them at M=256): masks and ids
+    bit-equal to the plain version with top_p = 0, and on these rows with
+    top_p set too (their masses are exact in f32)."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    logits = torch.randn(M, 4096, device=cuda, generator=g) * 4
+    logits[:8] = _odd_rows(cuda)
+    noise = -torch.log(-torch.log(torch.rand(M, 4096, device=cuda, generator=g)))
+    ids, mask = sample_kernel(logits, None, top_k, top_p, noise=noise,
+                              return_mask=True)
+    ids_p, mask_p = sample_plain(logits, None, top_k, top_p, noise=noise,
+                                 return_mask=True)
+    assert torch.equal(mask[:8], mask_p[:8]) and torch.equal(ids[:8], ids_p[:8])
+    rows = (mask == mask_p).all(-1) & (ids == ids_p)
+    assert rows.float().mean() >= (1.0 if top_p == 0.0 else 0.999)
+
+
+@pytest.mark.parametrize("M", [2, 18, 300])
+@pytest.mark.parametrize("V", [64, 128, 1000, 2048, 8192])
+@pytest.mark.parametrize("top_k,top_p", [(1, 0.0), (15, 0.0), (15, 0.5),
+                                         (0, 0.9)])
+def test_sampler_kernel_at_other_widths(cuda, V, M, top_k, top_p):
+    """Rows narrower and wider than the decode's (32 to 256 threads, one to
+    eight chunks a thread; the small stack's V=64 greedy rows). With top_p
+    set, the 0.999-of-rows gate is taken over at least 1000 rows, and the
+    launch on the first M rows alone gives the bits of those rows."""
+    g = torch.Generator(device=cuda).manual_seed(V + M)
+    n = M if top_p == 0.0 else max(M, 1000)
+    logits = torch.randn(n, V, device=cuda, generator=g) * 4
+    noise = -torch.log(-torch.log(torch.rand(n, V, device=cuda, generator=g)))
+    ids, mask = sample_kernel(logits, None, top_k, top_p, noise=noise,
+                              return_mask=True)
+    ids_p, mask_p = sample_plain(logits, None, top_k, top_p, noise=noise,
+                                 return_mask=True)
+    rows = (mask == mask_p).all(-1) & (ids == ids_p)
+    if top_p == 0.0:
+        assert rows.all()
+    else:  # integer masses against f32 sums: a rare row may differ
+        assert rows.float().mean() >= 0.999
+        ids_m, mask_m = sample_kernel(logits[:M], None, top_k, top_p,
+                                      noise=noise[:M], return_mask=True)
+        assert torch.equal(ids_m, ids[:M]) and torch.equal(mask_m, mask[:M])
+
+
+def test_sampler_kernel_replays_in_a_cuda_graph(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    logits = torch.randn(4096, 4096, device=cuda, generator=g) * 4
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (4096,), device=cuda,
+                          generator=g, dtype=torch.int32)
+    for M in (16, 4096):
+        eager = sample_kernel(logits[:M], seeds[:M], 900, 0.96)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = sample_kernel(logits[:M], seeds[:M], 900, 0.96)
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_sampler_kernel_refuses_what_it_does_not_take(cuda):
+    seeds = torch.zeros(4, dtype=torch.int32, device=cuda)
+    for V in (4098, 8196):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            sample_kernel(torch.zeros(4, V, device=cuda), seeds, 15, 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        sample_kernel(torch.zeros(4, 64, device=cuda, dtype=torch.bfloat16), seeds)
+    with pytest.raises(ValueError, match="row_seeds"):
+        sample_kernel(torch.zeros(4, 64, device=cuda), seeds[:3])
 
 
 def _log_uniform(shape, lo, hi, dev, g):
@@ -632,12 +727,13 @@ def test_attention_ring_write_straddles_split(cuda, c_dtype, bg, Lq):
 @pytest.mark.parametrize("s8", [True, False])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(8, 64, 64), (100, 1920, 200),
-                                   (200, 7680, 136), (64, 96, 520)])
+                                   (200, 7680, 136), (64, 96, 520),
+                                   (800, 1920, 7680), (300, 1920, 4096)])
 def test_w8a8_fused_kernel_matches_plain(cuda, s8, x_dtype, M, K, N):
-    """Ragged M and N against the 64 x 128 tiles, one and many K steps, an
-    all-zero row: the s8 form gives the plain version's bits; the bf16
-    form's f32 sum is exact below 2^24 (these sums stay below it), so it
-    does too."""
+    """Ragged M and N against the 256 x 160 tiles (M = 800: the decode's
+    scale 4 at B=32; N = 4096: the head), one and many K steps, an all-zero
+    row: the s8 form gives the plain version's bits; the bf16 form's f32
+    sum is exact below 2^24 (these sums stay below it), so it does too."""
     g = torch.Generator(device=cuda).manual_seed(M + K + N)
     x = (torch.randn(M, K, device=cuda, generator=g) * 3).to(x_dtype)
     x[M // 2] = 0
@@ -663,3 +759,23 @@ def test_w8a8_fused_kernel_refuses_what_it_does_not_take(cuda):
         w8a8_fused_kernel(x[:, 1:49], k_major(q[:48]), s, False)
     with pytest.raises(ValueError, match="CUDA"):
         w8a8_fused_kernel(x.cpu(), k_major(q), s)
+
+
+@pytest.mark.parametrize("s8", [True, False])
+def test_w8a8_fused_kernel_replays_in_a_cuda_graph(cuda, s8):
+    """The scratch's flags are zeroed on the stream before each launch, so
+    a replayed graph gives the eager bits."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = (torch.randn(800, 1920, device=cuda, generator=g) * 3).to(torch.bfloat16)
+    q = k_major(torch.randint(-127, 128, (1920, 7680), device=cuda, generator=g,
+                              dtype=torch.int8))
+    s = torch.rand(7680, device=cuda, generator=g) * 1e-2
+    eager = w8a8_fused_kernel(x, q, s, s8)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = w8a8_fused_kernel(x, q, s, s8)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
