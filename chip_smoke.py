@@ -21,8 +21,15 @@ and the entry points and measuring tools as a user runs them: the FID
 sampler (``sample_batches`` into an npz), ``python -m
 sdvar_tpu_torch.bench`` (one JSON line), the benchmark CLI's gamma and quant
 modes, the serving bench and the int8 matmul microbenchmark (the fused
-W8A8 kernel's path). It checks the outputs and the
-kernel launch counts of each path, holds small stacks on the card against
+W8A8 kernel's path); the sampler at vocabularies its kernel does not take
+(routed to the plain sampler); then training: kernel row 1 at VAR-d16's
+training shape with the gradient through it, a small ``train_step``
+against the CPU, VAR-d16 256px at global batch 32 through
+``run_training`` and timed ``train_step``s (remat, a progressive stage,
+gradient accumulation, the bf16 tokenizer, the checkpoint read back),
+``train_loop --smoke`` as a subprocess, and four ranks sharing the card
+with a stack whose heads do not divide the mesh. It checks the outputs and
+the kernel launch counts of each path, holds small stacks on the card against
 the CPU plain path, times the three pixel decoders and the kernels (the
 act-quant, conv, sampler and fused W8A8 kernels also replayed in CUDA
 graphs, and the W8A8
@@ -55,6 +62,7 @@ from sdvar_tpu_torch.config import (
     MeshConfig,
     SamplingConfig,
     SpeculativeConfig,
+    TrainConfig,
     VARConfig,
     VQVAEConfig,
     var_config_pair,
@@ -77,7 +85,8 @@ from sdvar_tpu_torch.models.vqvae import (
     init_vqvae_params,
 )
 from sdvar_tpu_torch.ops.kernels import _build
-from sdvar_tpu_torch.ops.attention import set_cache_kernel
+from sdvar_tpu_torch.ops import attention as ATT
+from sdvar_tpu_torch.ops.attention import set_attention_bwd_chunk, set_cache_kernel
 from sdvar_tpu_torch.ops.kernels.attention import (
     attention_cache_kernel,
     attention_cache_plain,
@@ -88,7 +97,12 @@ from sdvar_tpu_torch.ops.kernels.attention import (
     attention_plan,
     smem_bytes,
 )
-from sdvar_tpu_torch.ops.masks import verify_window_bias
+from sdvar_tpu_torch.ops.masks import (
+    block_causal_prefix,
+    device_bias,
+    verify_window_bias,
+)
+from sdvar_tpu_torch.ops.sampling import sample_with_top_k_top_p
 from sdvar_tpu_torch.ops.kernels import conv_s8 as CONV
 from sdvar_tpu_torch.ops.kernels.conv_s8 import (
     conv3x3_s8_kernel,
@@ -140,6 +154,10 @@ from sdvar_tpu_torch.parallel import distributed as DIST
 from sdvar_tpu_torch.parallel.launch import launch
 from sdvar_tpu_torch.parallel.mesh import create_mesh, shard_tree, var_param_specs
 from sdvar_tpu_torch.sample_fid import balanced_labels, sample_batches
+from sdvar_tpu_torch.train import checkpoint as CK
+from sdvar_tpu_torch.train import train_loop as TL
+from sdvar_tpu_torch.train import trainer as TR
+from sdvar_tpu_torch.train.data import SyntheticImageNet, batch_arrays
 from sdvar_tpu_torch.tools import (
     bench_serving,
     microbench_int8_matmul,
@@ -347,7 +365,7 @@ def fused_plan_checks():
 def sampler_plan_checks():
     """sampler_plan's shared memory is what the CUDA source gives a launch,
     at the decode's V, the widest V and narrow ones; the ptxas report."""
-    for V in (64, 1000, 2048, 4096, 8192):
+    for V in (64, 1000, 2048, 4096, 8192, 8196, 16384, 32768):
         plan = SMP.sampler_plan(4096, V)
         got = SMP.smem_bytes(V, plan["threads"])
         if got != plan["smem_bytes"]:
@@ -356,7 +374,8 @@ def sampler_plan_checks():
     plan = SMP.sampler_plan(4096, 4096)
     log(f"[build] sampler at V=4096: {plan['threads']} threads a row, "
         f"{plan['smem_bytes']} B dynamic shared memory (equal to the "
-        f"source's); ptxas {_kernel_ptxas('sampler', 'sample_kernel')}")
+        f"source's); ptxas {_kernel_ptxas('sampler', 'sample_kernelILb0E')}; "
+        f"the wide-row instance {_kernel_ptxas('sampler', 'sample_kernelILb1E')}")
 
 
 def phase_device_and_build():
@@ -991,6 +1010,7 @@ def _reset_counts():
     attention_cache_write_kernel.launches_int8 = 0
     attention_cache_kernel.launches = 0
     w8a8_fused_kernel.launches = scale_probe_kernel.launches = 0
+    sample_kernel.plain_rows = 0
 
 
 def _read_counts():
@@ -2768,7 +2788,7 @@ def _mesh_run_small(rep, arrs):
         for tag, mcfg in SMALL_MESHES.items():
             mesh = create_mesh(mcfg)
             set_tp_mesh(mesh)
-            ps = shard_tree(pd, var_param_specs(vc), mesh)
+            ps = shard_tree(pd, var_param_specs(vc, mesh), mesh)
             f_hat, ids = decode_all_scales(vc, qc, ps, qd["quant"], [3, 7, 1, 8],
                                            0, samp, torch.float32,
                                            return_ids=True, kv_mode=kv,
@@ -2808,7 +2828,7 @@ def _mesh_run_d30(rep, arrs, tag, mcfg):
     S, tp = len(PNS), mcfg.model
     for mode in ("bf16", "w8a8"):
         full = _mesh_var(var_cfg, mode)
-        params = shard_tree(full, var_param_specs(var_cfg), mesh)
+        params = shard_tree(full, var_param_specs(var_cfg, mesh), mesh)
         del full
         torch.cuda.empty_cache()
         kv = "bf16" if mode == "bf16" else "int8"
@@ -2902,7 +2922,7 @@ def _mesh_run_spec(rep, arrs):
     vae = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)
     mesh = create_mesh(MeshConfig(data=1, model=2))
     set_tp_mesh(mesh)
-    specs = var_param_specs(t_cfg), var_param_specs(d_cfg)
+    specs = var_param_specs(t_cfg, mesh), var_param_specs(d_cfg, mesh)
     p30 = shard_tree(init_var_params(t_cfg, seed=0, device=DEV,
                                      dtype=torch.bfloat16), specs[0], mesh)
     p16 = shard_tree(init_var_params(d_cfg, seed=5, device=DEV,
@@ -3005,6 +3025,481 @@ def mesh_rank_main(out_dir: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the eleventh slice: VAR training (d16 256px bs 32, AdamW) and the repairs
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_DEPTH = 32, 16
+TRAIN_PREFIX = 424  # the sequence at prog_si = 8 (scales up to 13x13)
+
+
+def _grad_err(got, want):
+    """max|d| / max|want| of a gradient, f32."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _rounding_apart(got, want, rel: float = 1e-3) -> bool:
+    """Whether two bf16 results of one f32 computation, summed in other
+    orders, are at most one bf16 rounding apart beyond ``rel`` of their
+    size: |d| <= 2^-7 |want| + rel max|want|, element by element."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= want.abs() * 2.0 ** -7
+                 + rel * want.abs().max()).all())
+
+
+def _train_att_bound(Bq, L, H, hd, bias):
+    """(bound ms, bound_by) of the training attention: q, k, v and the bias
+    read once, o written once (bf16), against 4*hd flops per (query, key)
+    pair the block-causal bias lets through (this run's bias), at the bf16
+    peak."""
+    pairs = int((bias > float("-inf")).sum().item())
+    nbytes = 2 * Bq * H * hd * 4 * L + 4 * L * L
+    flops = 4 * Bq * H * hd * pairs
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_train_attention():
+    """Kernel row 1 at the training shape (B=32, H=16, hd=64, bf16, q/k/v
+    strided views of one fused projection, the block-causal f32 bias), at
+    the full 680 tokens and the prog_si = 8 prefix (424): the forward
+    against ``attention_plain`` at the row-1 checks' tolerance; the
+    Function's dq/dk/dv within 1e-3 of their size of autograd through
+    ``attention_composition`` (the JAX package's reference, whose VJP the
+    whole-tensor backward is: bf16 probabilities in bf16) and, in f32, of
+    autograd through ``attention_plain``; a forced-chunk backward (f32
+    probabilities, as the JAX package's chunked backward) in f32 within
+    1e-5 of the whole-tensor one, in bf16 at most one bf16 rounding beyond
+    1e-3 of their size from autograd through ``attention_plain`` (f32
+    probabilities too). The gap that the probabilities' bf16 rounding opens
+    in bf16 is printed, not gated. Then the times."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    H, hd = TRAIN_DEPTH, 64
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for L in (680, TRAIN_PREFIX):
+        bias = device_bias(dev, block_causal_prefix, PNS, L)
+        for dtype in ((torch.bfloat16, torch.float32) if L == 680
+                      else (torch.bfloat16,)):
+            qkv = torch.randn(TRAIN_B, L, 3, H, hd, device=dev, generator=g)
+            qkv[:, :, :2] = torch.nn.functional.normalize(qkv[:, :, :2], dim=-1) * 4
+            qkv = qkv.to(dtype)
+            go = torch.randn(TRAIN_B, L, H, hd, device=dev, generator=g).to(dtype)
+            q, k, v = qkv.unbind(2)
+            got = attention_kernel(q, k, v, bias, 1.0).float()
+            want = attention_plain(q.float(), k.float(), v.float(), bias, 1.0)
+            err = (got - want).abs().max().item()
+            ok = (err <= 1e-4 if dtype == torch.float32 else
+                  torch.allclose(got, want, rtol=2e-2, atol=2e-2))
+            grads = {}
+            fns = {"function": ATT.attention, "chunked": ATT.attention,
+                   "composition": ATT.attention_composition,
+                   "plain": attention_plain}
+            for tag, fn in fns.items():
+                x = qkv.detach().requires_grad_()
+                qx, kx, vx = x.unbind(2)
+                set_attention_bwd_chunk(136 if tag == "chunked" else 0)
+                try:
+                    grads[tag] = torch.autograd.grad(
+                        fn(qx, kx, vx, bias, 1.0), x, go)[0]
+                finally:
+                    set_attention_bwd_chunk(None)
+
+            def rel(a, b):
+                return max(_grad_err(grads[a][:, :, i], grads[b][:, :, i])
+                           for i in range(3))
+
+            g_err, p_gap = rel("function", "composition"), rel("function", "plain")
+            c_err, c_gap = rel("chunked", "plain"), rel("chunked", "function")
+            bf16 = dtype == torch.bfloat16
+            ok = ok and g_err <= 1e-3 and (bf16 or p_gap <= 1e-3)
+            ok = ok and (all(_rounding_apart(grads["chunked"][:, :, i],
+                                             grads["plain"][:, :, i])
+                             for i in range(3)) if bf16 else c_gap <= 1e-5)
+            tag = f"[train attention] B={TRAIN_B} L={L} H={H} hd={hd} {str(dtype)[6:]}"
+            log(f"{tag}: forward max|d| {err:.3e}; Function dq/dk/dv against "
+                f"autograd through attention_composition: max|d| / max|ref| "
+                f"{g_err:.2e} (limit 0.001), through attention_plain "
+                f"{p_gap:.2e} ({'printed: bf16 against f32 probabilities' if bf16 else 'limit 0.001'}); "
+                f"forced chunks of 136 against the whole-tensor backward "
+                f"{c_gap:.2e} ({'printed' if bf16 else 'limit 1e-05'}), "
+                f"against autograd through attention_plain {c_err:.2e} "
+                f"({'within one bf16 rounding beyond 0.001 of their size' if bf16 else 'printed'}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag}: the attention or its gradient "
+                                     f"disagrees")
+            if dtype != torch.bfloat16:
+                continue
+            del grads
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            k_ms = cuda_ms(lambda: attention_kernel(q, k, v, bias, 1.0), 20)
+            p_ms = cuda_ms(lambda: attention_plain(q, k, v, bias, 1.0), 5, warmup=1)
+            l_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias.to(dtype),
+                                        scale=1.0), 20)
+            x = qkv.detach().requires_grad_()
+            qx, kx, vx = x.unbind(2)
+
+            def fwd_bwd():
+                y = ATT.attention(qx, kx, vx, bias, 1.0)
+                torch.autograd.grad(y, x, go)
+
+            fb_ms = cuda_ms(fwd_bwd, 5, warmup=1)
+            bound, by = _train_att_bound(TRAIN_B, L, H, hd, bias)
+            out[L] = {"kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                      "bound_ms": bound, "bound_by": by,
+                      "function_fwd_bwd_ms": fb_ms, "max_abs_err": err}
+            log(f"[time] {tag}, block-causal bias: kernel_ms {k_ms:.4f} "
+                f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
+                f"(scaled_dot_product_attention, the same float attn_mask) "
+                f"bound_ms {bound:.4f} ({by}); the Function's forward + "
+                f"backward {fb_ms:.4f} ms")
+            del x, qx, kx, vx
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_small():
+    """The small training stack of the card-vs-CPU check (depth 2, 48px,
+    V=64, head_dim 32; deterministic forward, AdaLN biases at 0.3)."""
+    vc = VARConfig(depth=2, num_classes=10, patch_nums=SMALL_PNS, vocab_size=64,
+                   Cvae=8, head_dim=32, cond_drop_rate=0.0, drop_path_rate=0.0)
+    qc = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=SMALL_PNS)
+    p = init_var_params(vc, seed=3, device="cpu")
+    p["blocks"]["ada_lin_b"].normal_(0, 0.3,
+                                     generator=torch.Generator().manual_seed(6))
+    q = init_vqvae_params(qc, seed=4, device="cpu", eini=1.0)
+    img = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (4, 3, 48, 48)).astype(np.float32))
+    return vc, qc, p, q, img, torch.tensor([0, 3, 5, 9])
+
+
+def phase_train_small_reference():
+    """One f32 ``train_step`` (AdamW, label smoothing 0.1) of the small
+    stack on the card against the same step on the CPU plain path, at the
+    CPU tests' tolerances: token ids equal, loss and grad_norm within 1e-5
+    relative, m and v within 1e-4 of each tensor's size, parameters
+    within 1e-6 except at most 0.1% of elements within 2 lr."""
+    vc, qc, p, q, img, label = _train_small()
+    lr = 1e-4
+    res = {}
+    for dev in ("cpu", DEV):
+        st = TR.init_train_state(_to(p, dev))
+        vae = _to(q, dev)
+        _, gt, _ = TR.tokenize(vc, qc, vae, img.to(dev))
+        _reset_counts()
+        st, m = TR.train_step(vc, qc, st, vae, img.to(dev), label.to(dev), lr,
+                              0.05, None, label_smooth=0.1, dtype=torch.float32)
+        torch.cuda.synchronize()
+        res[dev] = (gt.cpu(), st, {k: float(v) for k, v in m.items()},
+                    attention_kernel.launches)
+    (gc, sc, mc, _), (gg, sg, mg, n_att) = res["cpu"], res[DEV]
+    ids_ok = torch.equal(gc, gg)
+    scal = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss", "grad_norm"))
+    mom = {name: max(_grad_err(a.cpu(), b) for (_, a), (_, b) in zip(
+        TR.tree_leaves(sg.opt_state[name]), TR.tree_leaves(sc.opt_state[name])))
+        for name in ("mu", "nu")}
+    n_far = n_all = 0
+    worst = 0.0
+    for (_, a), (_, b) in zip(TR.tree_leaves(sg.params), TR.tree_leaves(sc.params)):
+        d = (a.cpu().double() - b.double()).abs()
+        worst = max(worst, d.max().item())
+        n_far += int((d > 1e-6).sum())
+        n_all += d.numel()
+    share = n_far / n_all
+    ok = (ids_ok and scal <= 1e-5 and max(mom.values()) <= 1e-4
+          and share <= 1e-3 and worst <= 2 * lr + 1e-6 and n_att == vc.depth)
+    log(f"[train reference] small stack f32 train_step, card vs CPU plain "
+        f"path: ids equal {ids_ok}; loss {mg['loss']:.6f} / {mc['loss']:.6f}, "
+        f"loss and grad_norm max rel. d {scal:.2e} (limit 1e-5); max|d| / "
+        f"size of m {mom['mu']:.2e}, of v {mom['nu']:.2e} (limit 1e-4); "
+        f"parameters beyond 1e-6: share "
+        f"{share:.6f} (limit 0.001), max|d| {worst:.2e} (limit 2 lr); "
+        f"{n_att} f32 hd=32 attention launches (want {vc.depth}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the training step on the card disagrees with "
+                             "the CPU")
+
+
+def _finite_tree(tree) -> bool:
+    return all(bool(torch.isfinite(t).all()) for _, t in TR.tree_leaves(tree))
+
+
+def phase_train(name):
+    """VAR-d16 at full width (C=1024, 16 heads, V=4096, L=680), 256px,
+    global batch 32, SyntheticImageNet, f32 tokenize, bf16 forward, f32
+    master weights, AdamW: ``run_training`` for 3 iterations through the
+    normal entry point (it evaluates and checkpoints where max_iters stops
+    it), then ``train_step`` timed directly (one warm-up, 4 measured steps
+    on one batch, host clock around synchronize), then a remat step, a
+    prog_si = 8 step, a grad_accum = 2 step and a tokenize_bf16 step, and
+    the checkpoint read back on the card. Returns row 1's launches per
+    step."""
+    tc = TrainConfig(depth=TRAIN_DEPTH, global_batch_size=TRAIN_B, epochs=1)
+    dev = torch.device(DEV)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.time()
+        state, hist = TL.run_training(tc, out_dir=out, max_iters=3,
+                                      batch_override=TRAIN_B, device=DEV)
+        wall = time.time() - t0
+        losses = [h["loss"] for h in hist]
+        log(f"[train d16] run_training (d16 256px bs {TRAIN_B}, synthetic "
+            f"data, f32 tokenize, bf16 forward, AdamW) 3 iterations + eval "
+            f"+ checkpoint in {wall:.1f} s; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}")
+        if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[train d16] run_training losses {losses}")
+        t0 = time.time()
+        back, meta = CK.auto_resume(out, state)
+        same = back is not None and meta["step"] == state.step == 3 and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                TR.tree_leaves({"p": back.params, "o": back.opt_state}),
+                TR.tree_leaves({"p": state.params, "o": state.opt_state})))
+        log(f"[train d16] checkpoint ckpt-00000003 read back on the card "
+            f"(auto_resume, {time.time() - t0:.1f} s): bit-equal {same}")
+        if not same:
+            raise AssertionError("[train d16] the checkpoint round trip differs")
+        del back
+    ds = SyntheticImageNet(reso=256, length=TRAIN_B, seed=5)
+    img_np, lab_np = batch_arrays(ds, list(range(TRAIN_B)))
+    img, label = torch.from_numpy(img_np).to(dev), torch.from_numpy(lab_np).to(dev)
+    vae = init_vqvae_params(VQVAEConfig(), seed=0, device=DEV)
+    var_cfg, vae_cfg = VARConfig(depth=TRAIN_DEPTH), VQVAEConfig()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lr, wd = 1e-4, 0.05
+    step = functools.partial(TR.train_step, var_cfg, vae_cfg, vae_params=vae,
+                             img=img, label_B=label, lr=lr, wd=wd,
+                             generator=gen, label_smooth=tc.label_smooth)
+    state, m = step(state)  # warm-up
+    torch.cuda.synchronize()
+    ms, losses, gnorms = [], [], []
+    for _ in range(4):
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state)
+        losses.append(float(m["loss"]))  # synchronises
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        launches = attention_kernel.launches
+        if launches != TRAIN_DEPTH or _read_counts() != _want(attention=TRAIN_DEPTH):
+            raise AssertionError(f"[train d16] launches per step {_read_counts()}")
+    finite = all(math.isfinite(x) for x in gnorms) and _finite_tree(state.params)
+    falls = losses[-1] < losses[0]
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ids = TR.tokenize(var_cfg, vae_cfg, vae, img)[1]
+    torch.cuda.synchronize()
+    tok_ms = (time.perf_counter() - t0) * 1e3 / 3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    best = min(ms)
+    log(f"[train d16] train_step, bs {TRAIN_B}: {', '.join(f'{x:.1f}' for x in ms)} "
+        f"ms (best {best:.1f} ms, {TRAIN_B / best * 1e3:.2f} img/s); the f32 "
+        f"tokenize alone {tok_ms:.1f} ms; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (falling {falls}); grad "
+        f"norms {', '.join(f'{x:.3f}' for x in gnorms)} (finite {finite}); "
+        f"peak memory {peak:.2f} GiB; {launches} attention launches per step "
+        f"(want {TRAIN_DEPTH}) on {name}")
+    if not (falls and finite):
+        raise AssertionError("[train d16] the loss does not fall or a gradient "
+                             "is not finite")
+    runs = {}
+    state, m = step(state, remat=True)  # the first remat step, untimed
+    float(m["loss"])
+    for tag, kw, want in (("remat", {"remat": True}, 2 * TRAIN_DEPTH),
+                          ("prog_si 8", {"prog_si": 8, "prog_wp": 0.5},
+                           TRAIN_DEPTH),
+                          ("grad_accum 2", {"grad_accum": 2}, 2 * TRAIN_DEPTH),
+                          ("tokenize_bf16", {"tokenize_bf16": True},
+                           TRAIN_DEPTH)):
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, **kw)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3
+        n = attention_kernel.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ok = math.isfinite(loss) and math.isfinite(float(m["grad_norm"])) and n == want
+        runs[tag] = n
+        log(f"[train d16] {tag} step: loss {loss:.4f}, {t:.1f} ms, peak memory "
+            f"{peak:.2f} GiB, {n} attention launches (want {want}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[train d16] the {tag} step")
+    ids16 = TR.tokenize(var_cfg, vae_cfg, vae, img, tokenize_bf16=True)[1]
+    log(f"[train d16] tokenize_bf16 ids equal to the f32 tokenize's on "
+        f"{(ids16 == ids).float().mean().item():.6f} of {ids.numel()} tokens")
+    del state, vae
+    torch.cuda.empty_cache()
+    return {"launches_per_step": launches, "remat_launches_per_step": runs["remat"],
+            "step_ms": best, "img_per_s": TRAIN_B / best * 1e3,
+            "tokenize_ms": tok_ms}
+
+
+def phase_train_smoke():
+    """``python -m sdvar_tpu_torch.train.train_loop --smoke`` on the card
+    (its default device), and the time of the f32 hd=32 attention instance
+    it runs."""
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "sdvar_tpu_torch.train.train_loop",
+                          "--smoke"], capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    line = next((x for x in out.stdout.splitlines() if x.startswith("[smoke]")), "")
+    log(f"[train smoke] --smoke on the card: exit {out.returncode} in "
+        f"{time.time() - t0:.1f} s: {line}")
+    if out.returncode != 0 or "cuda" not in line:
+        raise AssertionError(f"--smoke failed: {out.stderr[-2000:]}")
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(2, 14, 2, 32, device=dev, generator=g) for _ in range(3))
+    bias = device_bias(dev, block_causal_prefix, SMALL_PNS, 14)
+    f_ms = cuda_ms(lambda: attention_kernel(q, k, v, bias, 1.0), 50)
+    f_dev = device_ms(lambda: attention_kernel(q, k, v, bias, 1.0), 50)
+    log(f"[time] attention f32 hd=32 (the --smoke stack: B=2 L=14 H=2): "
+        f"{f_ms:.4f} ms a launch at the host's pace, {f_dev:.4f} device-paced; "
+        f"ptxas {_kernel_ptxas('attention', 'attention_f32_kernelILi32EfLb0E')}")
+    return {"ms": f_ms, "device_ms": f_dev}
+
+
+def phase_sampler_widths():
+    """Repair (a), and the kernel past the decode's vocab. At V = 8196,
+    16384 and 32768 (the kernel takes every multiple of 4; a row past 8192
+    is read in device memory) ``sample_with_top_k_top_p`` launches the
+    kernel once and sends no row to the plain sampler, its ids equal to
+    ``sample_plain``'s (bit for bit at top_p = 0; with top_p on 0.999 of
+    the rows, as the row-3 checks hold it: integer masses against f32
+    sums). At V = 8194 (not a multiple of 4) the rows go to
+    ``sample_plain`` on the card: bit-equal, no launch, the rows counted.
+    Returns the kernel's and the plain version's times at the wide widths."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(8)
+    M, out = B * 100, {}
+    for V in (8194, 8196, 16384, 32768):
+        logits = torch.randn(M, V, device=dev, generator=g) * 4
+        seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (M,), device=dev,
+                              generator=g, dtype=torch.int32)
+        taken = V % 4 == 0
+        for top_p in (0.0, 0.96):
+            _reset_counts()
+            ids = sample_with_top_k_top_p(logits[None], seeds, 900, top_p,
+                                          vocab=V)
+            torch.cuda.synchronize()
+            n, rows = sample_kernel.launches, sample_kernel.plain_rows
+            agree = (ids.reshape(-1) == sample_plain(logits, seeds, 900, top_p)
+                     ).float().mean().item()
+            need = 0.999 if taken and top_p else 1.0
+            want = (1, 0) if taken else (0, M)
+            ok = agree >= need and (n, rows) == want
+            log(f"[sampler widths] V={V} M={M} top_k=900 top_p={top_p}: ids "
+                f"equal to sample_plain on {agree:.6f} of the rows (need "
+                f"{need}), kernel launches {n}, rows routed to the plain "
+                f"sampler {rows} (want {want[0]} and {want[1]}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the sampler at V={V} top_p={top_p}")
+        if taken and V > SMP.SMEM_V:
+            k_ms = cuda_ms(lambda: sample_kernel(logits, seeds, 900, 0.96), 20)
+            p_ms = cuda_ms(lambda: sample_plain(logits, seeds, 900, 0.96), 3,
+                           warmup=1)
+            n_topk = sample_plain(logits, seeds, 900, 0.0, return_mask=True)[1].sum()
+            bound, by = sampler_bound(M, V, int(n_topk))
+            out[V] = {"M": M, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                      "bound_by": by}
+            log(f"[time] sampler M={M} V={V} top_k=900 top_p=0.96 (the row in "
+                f"device memory): kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+                f"bound_ms {bound:.4f} ({by})")
+        del logits, seeds
+    return out
+
+
+MESH4_WORLD = 4
+MESH4_VOCABS = {"heads": 64, "heads+vocab": 66}
+
+
+def _mesh4_stack(vocab):
+    vc = VARConfig(depth=6, num_classes=10, patch_nums=SMALL_PNS,
+                   vocab_size=vocab, Cvae=8, head_dim=32)
+    qc = VQVAEConfig(vocab_size=vocab, z_channels=8, ch=32, patch_nums=SMALL_PNS)
+    p = init_var_params(vc, seed=0, device="cpu")
+    p["blocks"]["ada_lin_b"].normal_(0, 0.3,
+                                     generator=torch.Generator().manual_seed(6))
+    q = init_vqvae_params(qc, seed=1, device="cpu", eini=1.0)["quant"]
+    return vc, qc, _to(p, DEV), _to(q, DEV)
+
+
+def mesh4_rank_main(out_dir: str) -> int:
+    """One of four ranks on cuda:0 (gloo): the 6-head small stack at
+    model=4 (the heads whole on every rank; once with the vocab 66 whole
+    too) against the unsharded card decode on this rank."""
+    DIST.initialize()
+    torch.cuda.set_device(DIST.rank_device())
+    rank = DIST.get_rank()
+    mesh = create_mesh(MeshConfig(data=1, model=MESH4_WORLD))
+    samp = SamplingConfig(cfg=1.5, top_k=1)
+    rep = {}
+    for tag, vocab in MESH4_VOCABS.items():
+        vc, qc, p, q = _mesh4_stack(vocab)
+        set_tp_mesh(None)
+        _reset_counts()
+        f_ref, ids_ref = decode_all_scales(vc, qc, p, q, [3, 7, 1, 8], 7, samp,
+                                           torch.float32, return_ids=True,
+                                           kv_mode="f32", device=DEV)
+        want = _read_counts()
+        set_tp_mesh(mesh)
+        ps = shard_tree(p, var_param_specs(vc, mesh), mesh)
+        _reset_counts()
+        f_hat, ids = decode_all_scales(vc, qc, ps, q, [3, 7, 1, 8], 7, samp,
+                                       torch.float32, return_ids=True,
+                                       kv_mode="f32", gather=True, device=DEV)
+        got = _read_counts()
+        set_tp_mesh(None)
+        rel = ((f_hat - f_ref).abs().max() / f_ref.abs().max()).item()
+        rep[tag] = {"ids_equal": torch.equal(ids, ids_ref), "fhat_rel": rel,
+                    "launches": got, "unsharded_launches": want,
+                    "qkv_cols": ps["blocks"]["qkv_w"].shape[-1]}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    DIST.shutdown()
+    return 0
+
+
+def phase_mesh_replicated():
+    """Repair (b): four ranks sharing cuda:0 through gloo decode the
+    6-head small stack at model=4 (heads whole on every rank, the other
+    widths split; then the vocab 66 whole too): ids equal to the unsharded
+    card decode, f_hat within 1e-5 of its size, each rank's kernel
+    launches those of the unsharded decode."""
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.time()
+        launch([sys.executable, os.path.abspath(__file__), "--mesh4-rank", out],
+               MESH4_WORLD, 300.0)
+        wall = time.time() - t0
+        reps = []
+        for r in range(MESH4_WORLD):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+    for tag in MESH4_VOCABS:
+        rows = [rep[tag] for rep in reps]
+        ok = all(r["ids_equal"] and r["fhat_rel"] <= 1e-5
+                 and r["launches"] == r["unsharded_launches"] for r in rows)
+        log(f"[mesh 1x4 {tag} whole] 4 ranks on cuda:0 (gloo, {wall:.1f} s): "
+            f"ids equal to the unsharded card decode "
+            f"{[r['ids_equal'] for r in rows]}, f_hat max|d| / max|ref| "
+            f"{max(r['fhat_rel'] for r in rows):.2e} (limit 1e-5), qkv columns "
+            f"a rank {rows[0]['qkv_cols']} (whole), launches a rank "
+            f"{ {k: v for k, v in rows[0]['launches'].items() if v} } "
+            f"(the unsharded decode's) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[mesh 1x4 {tag}] {rows}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3037,6 +3532,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase_mesh
         return mesh_rank_main(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh4-rank"]:  # one rank of phase_mesh_replicated
+        return mesh4_rank_main(sys.argv[2])
     t_start = time.time()
     name = phase_device_and_build()
     with full_f32():  # the plain f32 versions' products, as the kernels'
@@ -3062,6 +3559,14 @@ def main() -> int:
     phase_bench_serving()
     phase_bench()
     probe_mesh_placement.run()  # a 1x1 mesh: the same launches and bits
+    wide = phase_sampler_widths()
+    t_train = time.time()
+    train_att = phase_train_attention()
+    phase_train_small_reference()
+    train = phase_train(name)
+    smoke = phase_train_smoke()
+    log(f"[train] phases took {time.time() - t_train:.1f} s")
+    phase_mesh_replicated()
     t_mesh = time.time()
     reps = phase_mesh(name)
     log(f"[mesh] phase took {time.time() - t_mesh:.1f} s")
@@ -3080,6 +3585,16 @@ def main() -> int:
                 tag: reps[0][tag]["launches"][row["name"]]
                 for tag in ("d30 1x2 bf16", "d30 1x2 w8a8", "d30 2x1 bf16",
                             "d30 2x1 w8a8")}
+    for row in kernels:
+        if row["name"] == "sampler":  # rows past 8192, in device memory
+            row["wide"] = wide
+        if row["name"] == "attention":  # row 1 on the training path
+            row["train"] = {"launches_per_step": train["launches_per_step"],
+                            "remat_launches_per_step":
+                                train["remat_launches_per_step"],
+                            "L680": train_att[680],
+                            "L424": train_att[TRAIN_PREFIX],
+                            "smoke_f32_hd32": smoke}
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of ``sdvar_tpu`` (VAR next-scale image generation).
+"""PyTorch/CUDA port of ``sdvar_tpu`` (VAR next-scale image generation and
+its training on one card, ``train/``).
 
 The JAX package ``sdvar_tpu`` stays the reference; this package imports
 nothing from it and nothing of JAX. Plain tensor code is PyTorch; the two

@@ -1,4 +1,5 @@
-"""Model, tokenizer, sampling, speculative-decoding and mesh configuration.
+"""Model, tokenizer, sampling, speculative-decoding, mesh and training
+configuration.
 
 A copy of the configuration classes of ``sdvar_tpu/config.py`` (the port
 imports nothing from the JAX package). Frozen dataclasses, hashable, with
@@ -200,6 +201,64 @@ class MeshConfig:
     @property
     def num_devices(self) -> int:
         return self.data * self.model
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the JAX package's ``TrainConfig``)."""
+
+    depth: int = 16
+    reso: int = 256
+    global_batch_size: int = 768
+    grad_accum: int = 1
+    epochs: int = 200
+    base_lr: float = 1e-4          # per-256-batch LR
+    lr_schedule: str = "lin0"      # {cos, lin, lin0, lin00, linX, exp}
+    warmup_ep: Optional[float] = None   # None -> epochs / 50
+    weight_decay: float = 0.05
+    weight_decay_end: float = 0.0
+    grad_clip: float = 2.0
+    label_smooth: float = 0.1
+    shared_aln: bool = False
+    attn_l2_norm: bool = True
+    workers: int = 0
+    seed: Optional[int] = None
+    bf16: bool = True
+    remat: bool = False           # recompute each block in the backward
+    tokenize_bf16: bool = False   # the frozen VQVAE's encoder in bf16
+    optimizer: str = "adamw"      # "adamw" | "adafactor" (factored RMS)
+    dbg_nan: bool = False         # stop at a non-finite loss
+    saln_every: int = 10          # eval and checkpoint cadence in epochs
+    pg: float = 0.0               # > 0: progressive over [0, pg] of training
+    pg0: int = 4                  # the first progressive stage
+    pgwp: Optional[float] = None  # per-stage warmup epochs; None -> ep / 300
+
+    @property
+    def patch_nums(self) -> Tuple[int, ...]:
+        return patch_nums_for_reso(self.reso)
+
+    def peak_lr(self, world_size_unused: int = 1) -> float:
+        """lr = grad_accum * base_lr * global_batch / 256."""
+        return self.grad_accum * self.base_lr * self.global_batch_size / 256
+
+    def warmup_epochs(self) -> float:
+        return self.warmup_ep if self.warmup_ep is not None else self.epochs / 50
+
+    def pgwp_epochs(self) -> float:
+        return self.pgwp if self.pgwp is not None else self.epochs / 300
+
+    def prog_si_at(self, g_it: int, wp_it: float, max_it: int,
+                   num_scales: int) -> int:
+        """The progressive stage at iteration ``g_it`` (-1: off)."""
+        if self.pg <= 0:
+            return -1
+        if g_it <= wp_it:
+            return self.pg0
+        if g_it >= max_it * self.pg:
+            return num_scales - 1
+        delta = num_scales - 1 - self.pg0
+        progress = min(max((g_it - wp_it) / (max_it * self.pg - wp_it), 0), 1)
+        return self.pg0 + round(progress * delta)
 
 
 def var_config_pair(

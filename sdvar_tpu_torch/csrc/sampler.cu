@@ -19,7 +19,9 @@
 // steps of bisection each (a reduction over the row per step: about 180
 // operations a logit). Here each is a two-level histogram and a small exact
 // ranking over the row, which one block (32-256 threads) keeps in shared
-// memory after reading it from device memory once:
+// memory after reading it from device memory once (a row of at most
+// SMEM_V = 8192 values; a wider row stays in device memory and each pass
+// reads it there, through L2, so any width that is a multiple of 4 runs):
 //   1. the participating values fall into 2048 bins linear in x between
 //      their least and largest value (f32 subtract, multiply and
 //      truncation: monotone in x, so a bin holds a contiguous run of the
@@ -41,8 +43,9 @@
 //      most-significant-digit-first radix passes of 8 bits over its keys.
 //   - top-k: weight 1 a valid column, target k; integer counts, so the
 //     threshold and the mask are bit-equal to the plain version's.
-//   - nucleus: weight E_j = round(exp(x_j - max) * 2^50), an integer, for
-//     each column top-k keeps; target T = ceil(top_p * sum E) (in f64).
+//   - nucleus: weight E_j = round(exp(x_j - max) * 2^b), an integer, for
+//     each column top-k keeps, b = min(50, 63 - ceil(log2 V)) so that a
+//     row's sum stays below 2^63; target T = ceil(top_p * sum E) (in f64).
 //     The select finds the largest key whose inclusive mass from the top
 //     reaches T; keeping the keys at or above it keeps exactly the columns
 //     whose mass strictly above is below T. The masses are summed as
@@ -52,13 +55,15 @@
 //     lands within an f32 step of the threshold.
 //   - the noise is drawn (row hash and two logs) and the argmax taken only
 //     for the kept columns, dealt out densely to a warp's lanes.
-// A thread handles 16-byte chunks of the row, threads apart (V <= 8192,
-// V % 4 == 0); the geometry comes from ops/kernels/sampling.py:sampler_plan.
-// Dynamic shared memory: the row and the kept columns (4V bytes each), the
-// fallback's histogram, the ranked candidates and the per-warp coarse
-// masses. A row has 32-256 threads with at most 48 registers each, so five
-// blocks (40 KB of shared memory each at V = 4096) share an SM and hide
-// each other's barriers.
+// A thread handles 16-byte chunks of the row, threads apart (V % 4 == 0);
+// the geometry comes from ops/kernels/sampling.py:sampler_plan. Dynamic
+// shared memory: the row and the kept columns (4V bytes each; a wide row
+// has neither: its nucleus passes skip the columns below the top-k
+// threshold instead of setting the kept ones aside), the fallback's
+// histogram, the ranked candidates and the per-warp coarse masses. A row
+// has 32-256 threads with at most 48 registers each, so five blocks (40 KB
+// of shared memory each at V = 4096) share an SM and hide each other's
+// barriers.
 //
 // Bound on this card: one read of the (M, V) f32 logits, 67 MB at the
 // 256px scale-9 shape M = V = 4096 (0.020 ms at 3.35 TB/s); the function
@@ -81,6 +86,9 @@ constexpr int FINE = 64;          // fine bins of a coarse bin
 constexpr int CAND = 128;         // a fine bin of at most this many is ranked directly
 constexpr int RBITS = 8;          // the fallback's radix digit
 constexpr int MASS_BITS = 50;     // fixed-point scale of the nucleus masses
+constexpr int SMEM_V = 8192;      // the widest row held in shared memory
+constexpr int SEG = 63;           // chunks a thread counts before its byte
+                                  // counters (4 values a chunk) are summed
 constexpr float NOT_KEPT = -1e30f;
 
 struct Shared {
@@ -104,6 +112,8 @@ struct Shared {
 // counters over the banks); the fallback's radix histogram (2^RBITS bins
 // and one pad slot a thread, 8 bytes each); the ranked candidates' weights
 // and keys; the coarse bins' per-warp weights (32 a warp, 8 bytes each).
+// A row wider than SMEM_V has no row and no kept columns there (`row`
+// points at the logits, `kept` is unused): the counts come first.
 struct Layout {
   float* row;
   float* kept;
@@ -113,21 +123,27 @@ struct Layout {
   u64* cand_w;  // (int weights use the low half of the space)
   u64* coarse;  // [warps][COARSE]
 };
+__host__ __device__ constexpr int row_bytes(int V) {
+  return V > SMEM_V ? 0 : V * 4;
+}
 __host__ __device__ constexpr int kept_bytes(int V, int threads) {
-  return V * 4 > COARSE * (threads + 4) ? V * 4 : COARSE * (threads + 4);
+  return row_bytes(V) > COARSE * (threads + 4) ? row_bytes(V)
+                                                : COARSE * (threads + 4);
 }
 __host__ __device__ constexpr int hist_offset(int V, int threads) {
-  return V * 4 + kept_bytes(V, threads);
+  return row_bytes(V) + kept_bytes(V, threads);
 }
 __host__ __device__ constexpr int smem_total(int V, int threads) {
   return hist_offset(V, threads) + ((1 << RBITS) + threads) * 8 + CAND * (4 + 8) +
          threads / 32 * COARSE * 8;
 }
-__device__ __forceinline__ Layout layout(unsigned char* dyn, int V) {
+template <bool WIDE>
+__device__ __forceinline__ Layout layout(unsigned char* dyn, int V,
+                                         const float* logits_row) {
   Layout l;
-  l.row = reinterpret_cast<float*>(dyn);
-  l.kept = l.row + V;
-  l.counts = reinterpret_cast<unsigned char*>(l.kept);
+  l.row = WIDE ? const_cast<float*>(logits_row) : reinterpret_cast<float*>(dyn);
+  l.kept = WIDE ? nullptr : l.row + V;
+  l.counts = WIDE ? dyn : reinterpret_cast<unsigned char*>(l.kept);
   l.hist = dyn + hist_offset(V, blockDim.x);
   l.cand_w = reinterpret_cast<u64*>(l.hist + ((1 << RBITS) + blockDim.x) * 8);
   l.cand_key = reinterpret_cast<uint32_t*>(l.cand_w + CAND);
@@ -188,14 +204,19 @@ __device__ __forceinline__ void pick_lane(T weight, T target, Shared& sh) {
 }
 
 // f(x, ok) for the values of xs (16-byte aligned; n of them) in this
-// thread's chunks of four, threads apart; ok says whether x is one of the
-// n. Every thread makes the same number of calls (f may use ballots).
+// thread's chunks of four, threads apart (its chunks c0 to c1 alone, where
+// given); ok says whether x is one of the n. Every thread makes the same
+// number of calls (f may use ballots).
+__device__ __forceinline__ int chunks_of(int n) {
+  return (n + 4 * (int)blockDim.x - 1) / (4 * (int)blockDim.x);
+}
 template <typename F>
-__device__ __forceinline__ void walk(const float* xs, int n, F f) {
+__device__ __forceinline__ void walk(const float* xs, int n, F f, int c0 = 0,
+                                     int c1 = 0x7fffffff) {
   const float4* x4 = reinterpret_cast<const float4*>(xs);
-  const int tid = threadIdx.x, nt = blockDim.x, chunks = (n + 4 * nt - 1) / (4 * nt);
+  const int tid = threadIdx.x, nt = blockDim.x, chunks = min(c1, chunks_of(n));
 #pragma unroll 2
-  for (int c = 0; c < chunks; ++c) {
+  for (int c = c0; c < chunks; ++c) {
     const int q = tid + c * nt;
     const float4 v = 4 * q < n ? x4[q] : make_float4(0.f, 0.f, 0.f, 0.f);
     f(v.x, 4 * q < n);
@@ -242,15 +263,17 @@ __device__ void radix_pass(const float* xs, int n, D digit, W weight, T target,
   __syncthreads();
 }
 
-// The largest key among the n values xs (shared memory) whose weight from
-// the top (the summed weights of the keys at or above it) reaches the
-// target; the values lie in [from_key(lo_key), from_key(hi_key)].
-// RELATIVE (masses): the target is ceil(top_p * total weight); else
-// weight(x) is 1 (counts).
-template <typename T, bool RELATIVE, typename W>
+// The largest key among the n values xs (shared memory; WIDE: device
+// memory, and only those of them whose key is at least floor_key) whose
+// weight from the top (the summed weights of the keys at or above it)
+// reaches the target; the values lie in [from_key(lo_key),
+// from_key(hi_key)]. RELATIVE (masses): the target is ceil(top_p * total
+// weight); else weight(x) is 1 (counts), and a WIDE row's count pass is
+// cut into SEG chunks at a time (a shared-memory row has at most 8).
+template <typename T, bool RELATIVE, bool WIDE, typename W>
 __device__ uint32_t select_key(const float* xs, int n, W weight, T target,
-                               float top_p, uint32_t lo_key, uint32_t hi_key,
-                               const Layout& L, Shared& sh) {
+                               float top_p, uint32_t floor_key, uint32_t lo_key,
+                               uint32_t hi_key, const Layout& L, Shared& sh) {
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, w = tid >> 5;
   const int nw = nt >> 5;
   T* fine = reinterpret_cast<T*>(sh.fine);
@@ -264,6 +287,9 @@ __device__ uint32_t select_key(const float* xs, int n, W weight, T target,
     const int b = scale == 0.f ? 0 : (int)__fmul_rn(__fsub_rn(x, lo), scale);
     return min(b, COARSE * FINE - 1);
   };
+  auto part = [&](float x, bool in) {  // x takes part in the select
+    return in && (!WIDE || to_key(x) >= floor_key);
+  };
 
   // 1. the coarse bins' weights. Counts (every value of the row): each
   // thread's own byte counters, then summed a bin a warp, no atomics.
@@ -274,25 +300,29 @@ __device__ uint32_t select_key(const float* xs, int n, W weight, T target,
     mine[lane] = 0;
     __syncwarp();
     walk(xs, n, [&](float x, bool in) {
-      if (in) atomicAdd(reinterpret_cast<unsigned long long*>(mine + (bin(x) >> 6)),
-                        (unsigned long long)weight(x));
+      if (part(x, in))
+        atomicAdd(reinterpret_cast<unsigned long long*>(mine + (bin(x) >> 6)),
+                  (unsigned long long)weight(x));
     });
-  } else {
-    const int stride = nt + 4;
+  } else {  // SEG chunks at a time, so that no byte counter passes 255
+    const int stride = nt + 4, chunks = WIDE ? chunks_of(n) : 1;
+    for (int c0 = 0; c0 < chunks; c0 += SEG) {
 #pragma unroll
-    for (int b = 0; b < COARSE; ++b) L.counts[b * stride + tid] = 0;
-    walk(xs, n, [&](float x, bool in) {
-      if (in) ++L.counts[(bin(x) >> 6) * stride + tid];
-    });
-    __syncthreads();
-    const int per_warp = COARSE / nw, words = nt / 4;
-    for (int k = 0; k < per_warp; ++k) {
-      const int b = w * per_warp + k;
-      const uint32_t* row = reinterpret_cast<const uint32_t*>(L.counts + b * stride);
-      unsigned sum = 0;
-      for (int q = lane; q < words; q += 32) sum = __dp4a(row[q], 0x01010101u, sum);
-      sum = __reduce_add_sync(0xffffffffu, sum);
-      if (lane == 0) L.coarse[b] = sum;
+      for (int b = 0; b < COARSE; ++b) L.counts[b * stride + tid] = 0;
+      walk(xs, n, [&](float x, bool in) {
+        if (part(x, in)) ++L.counts[(bin(x) >> 6) * stride + tid];
+      }, c0, WIDE ? c0 + SEG : 0x7fffffff);
+      __syncthreads();
+      const int per_warp = COARSE / nw, words = nt / 4;
+      for (int k = 0; k < per_warp; ++k) {
+        const int b = w * per_warp + k;
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(L.counts + b * stride);
+        unsigned sum = 0;
+        for (int q = lane; q < words; q += 32) sum = __dp4a(row[q], 0x01010101u, sum);
+        sum = __reduce_add_sync(0xffffffffu, sum);
+        if (lane == 0) L.coarse[b] = (c0 ? L.coarse[b] : 0) + sum;
+      }
+      if (WIDE) __syncthreads();
     }
   }
   for (int i = tid; i < FINE; i += nt) fine[i] = 0;
@@ -318,7 +348,7 @@ __device__ uint32_t select_key(const float* xs, int n, W weight, T target,
   // alone
   walk(xs, n, [&](float x, bool in) {
     const int b = bin(x);
-    if (in && (b >> 6) == cb) atomicAdd(&fine[b & (FINE - 1)], weight(x));
+    if (part(x, in) && (b >> 6) == cb) atomicAdd(&fine[b & (FINE - 1)], weight(x));
   });
   __syncthreads();
   if (w == 0) {
@@ -351,7 +381,7 @@ __device__ uint32_t select_key(const float* xs, int n, W weight, T target,
     }
   };
   walk(xs, n, [&](float x, bool in) {
-    if (in && bin(x) == chosen) consider(x);
+    if (part(x, in) && bin(x) == chosen) consider(x);
   });
   block_min_max(blo, bhi, sh);  // also orders the stores above before the reads
   if (blo == bhi) return blo;   // one value in the bin: it is the answer
@@ -377,7 +407,7 @@ __device__ uint32_t select_key(const float* xs, int n, W weight, T target,
   for (int shift = 32 - RBITS; shift >= 0; shift -= RBITS) {
     auto digit = [&](float x) -> int {
       const uint32_t k = to_key(x);
-      if (bin(x) != chosen || (k & pmask) != prefix) return -1;
+      if (!part(x, true) || bin(x) != chosen || (k & pmask) != prefix) return -1;
       return (k >> shift) & ((1 << RBITS) - 1);
     };
     radix_pass<T>(xs, n, digit, weight, target, reinterpret_cast<T*>(L.hist), sh);
@@ -412,24 +442,27 @@ __device__ __forceinline__ void better(float& s, int& c, float s2, int c2) {
   }
 }
 
+// WIDE: a row of more than SMEM_V values, read in device memory by every
+// pass (no copy in shared memory, no kept columns set aside).
+template <bool WIDE>
 __global__ void __launch_bounds__(MAX_THREADS, 5) sample_kernel(
     const float* __restrict__ logits, const int* __restrict__ seeds,
     const float* __restrict__ noise, int* __restrict__ ids,
-    int8_t* __restrict__ mask, int V, int top_k, float top_p) {
+    int8_t* __restrict__ mask, int V, int top_k, float top_p, int mass_bits) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ Shared sh;
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, w = tid >> 5;
   const ll row = blockIdx.x;
   const float4* xr = reinterpret_cast<const float4*>(logits + row * V);
-  const Layout L = layout(dyn, V);
+  const Layout L = layout<WIDE>(dyn, V, logits + row * V);
   float4* row4 = reinterpret_cast<float4*>(L.row);
 
-  // the row into shared memory, and its least and largest keys
+  // the row into shared memory (unless wide), and its least and largest keys
   uint32_t kmin = 0xffffffffu, kmax = 0;
 #pragma unroll 4
   for (int q = tid; 4 * q < V; q += nt) {
     const float4 v = __ldg(xr + q);
-    row4[q] = v;
+    if (!WIDE) row4[q] = v;
     kmin = min(min(min(kmin, to_key(v.x)), to_key(v.y)), min(to_key(v.z), to_key(v.w)));
     kmax = max(max(max(kmax, to_key(v.x)), to_key(v.y)), max(to_key(v.z), to_key(v.w)));
   }
@@ -440,47 +473,54 @@ __global__ void __launch_bounds__(MAX_THREADS, 5) sample_kernel(
   const bool topk = 0 < top_k && top_k < V;
   if (topk) {
     auto one = [](float) { return 1; };
-    kth = select_key<int, false>(L.row, V, one, top_k, 0.f, kmin, kmax, L, sh);
+    kth = select_key<int, false, WIDE>(L.row, V, one, top_k, 0.f, 0u, kmin, kmax,
+                                       L, sh);
   }
 
-  // nucleus over the kept columns (set aside when top-k drops some): keep
-  // key >= kappa among those
+  // nucleus over the kept columns (set aside when top-k drops some, or,
+  // in a wide row, those at or above kth): keep key >= kappa among those
   uint32_t kappa = 0;
   if (0.f < top_p && top_p < 1.f) {
-    const float* kept = L.row;
-    int n = V;
-    if (topk) {  // set aside in column order: a warp's count, then places
-      const int slots = (V + nt - 1) / nt;
-      int mine = 0;
-      for (int s = 0; s < slots; ++s) {
-        const int i = tid + s * nt;
-        mine += __popc(__ballot_sync(0xffffffffu, i < V && to_key(L.row[i]) >= kth));
-      }
-      if (lane == 0) sh.warp_kept[w] = mine;
-      __syncthreads();
-      int base = 0;
-      n = 0;
-      for (int k = 0; k < nt / 32; ++k) {
-        base += k < w ? sh.warp_kept[k] : 0;
-        n += sh.warp_kept[k];
-      }
-      for (int s = 0; s < slots; ++s) {
-        const int i = tid + s * nt;
-        const bool in = i < V && to_key(L.row[i]) >= kth;
-        const unsigned m = __ballot_sync(0xffffffffu, in);
-        if (in) L.kept[base + __popc(m & ((1u << lane) - 1))] = L.row[i];
-        base += __popc(m);
-      }
-      __syncthreads();
-      kept = L.kept;
-    }
-    const float x_max = from_key(kmax);
-    auto mass = [&](float x) -> u64 {
-      const float ex = expf(__fsub_rn(x, x_max));
-      return __float2ull_rn(__fmul_rn(ex, (float)(1ull << MASS_BITS)));
+    auto masses = [kmax](int bits) {  // exp(x - max) with `bits` fraction bits
+      const float x_max = from_key(kmax), unit = (float)(1ull << bits);
+      return [x_max, unit](float x) -> u64 {
+        return __float2ull_rn(__fmul_rn(expf(__fsub_rn(x, x_max)), unit));
+      };
     };
-    kappa = select_key<u64, true>(kept, n, mass, 0ull, top_p, max(kth, kmin), kmax,
-                                  L, sh);
+    if constexpr (WIDE) {
+      kappa = select_key<u64, true, true>(L.row, V, masses(mass_bits), 0ull, top_p,
+                                          kth, max(kth, kmin), kmax, L, sh);
+    } else {
+      const float* kept = L.row;
+      int n = V;
+      if (topk) {  // set aside in column order: a warp's count, then places
+        const int slots = (V + nt - 1) / nt;
+        int mine = 0;
+        for (int s = 0; s < slots; ++s) {
+          const int i = tid + s * nt;
+          mine += __popc(__ballot_sync(0xffffffffu, i < V && to_key(L.row[i]) >= kth));
+        }
+        if (lane == 0) sh.warp_kept[w] = mine;
+        __syncthreads();
+        int base = 0;
+        n = 0;
+        for (int k = 0; k < nt / 32; ++k) {
+          base += k < w ? sh.warp_kept[k] : 0;
+          n += sh.warp_kept[k];
+        }
+        for (int s = 0; s < slots; ++s) {
+          const int i = tid + s * nt;
+          const bool in = i < V && to_key(L.row[i]) >= kth;
+          const unsigned m = __ballot_sync(0xffffffffu, in);
+          if (in) L.kept[base + __popc(m & ((1u << lane) - 1))] = L.row[i];
+          base += __popc(m);
+        }
+        __syncthreads();
+        kept = L.kept;
+      }
+      kappa = select_key<u64, true, false>(kept, n, masses(MASS_BITS), 0ull, top_p,
+                                           0u, max(kth, kmin), kmax, L, sh);
+    }
   }
   const uint32_t thr = max(kth, kappa);
 
@@ -552,22 +592,30 @@ __global__ void __launch_bounds__(MAX_THREADS, 5) sample_kernel(
 
 bool configured = false;  // the dynamic shared memory limit, raised once
 
+// the nucleus masses' fraction bits: a row of V masses of at most 2^b
+// sums below 2^63
+int mass_bits_for(int V) {
+  int log2v = 0;
+  while ((1ll << log2v) < V) ++log2v;
+  return 63 - log2v < MASS_BITS ? 63 - log2v : MASS_BITS;
+}
+
 }  // namespace
 
 // logits: contiguous (M, V) float32, 16-byte aligned; seeds: (M,) int32 row
 // seeds, or null when noise (contiguous (M, V) float32, 16-byte aligned)
 // is given; ids: (M,) int32 out; mask: contiguous (M, V) int8 keep mask
-// out, or null. threads (a power of two, 32-256, at least V / 32: top-k's
-// byte counters take at most 32 values a thread) comes from
-// ops/kernels/sampling.py:sampler_plan. V <= 8192, V % 4 == 0. Returns the
-// cudaError_t of the launch (0 = success).
+// out, or null. threads (a power of two, 32-256) comes from
+// ops/kernels/sampling.py:sampler_plan. V % 4 == 0 (a row of more than
+// SMEM_V values stays in device memory). Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int sdvar_sample(const void* logits, const void* seeds,
                             const void* noise, void* ids, void* mask,
                             long long M, int V, int top_k, float top_p,
                             int threads, void* stream) {
-  if (M <= 0 || M > 0x7fffffffLL || V <= 0 || V > 8192 || V % 4 ||
+  if (M <= 0 || M > 0x7fffffffLL || V <= 0 || V % 4 ||
       threads < 32 || threads > MAX_THREADS || (threads & (threads - 1)) ||
-      threads * 32 < V || (seeds == nullptr && noise == nullptr))
+      (seeds == nullptr && noise == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* x = static_cast<const float*>(logits);
@@ -577,13 +625,18 @@ extern "C" int sdvar_sample(const void* logits, const void* seeds,
   int8_t* k = static_cast<int8_t*>(mask);
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_total(8192, MAX_THREADS));
+        sample_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_total(SMEM_V, MAX_THREADS));
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  sample_kernel<<<(unsigned)M, threads, smem_total(V, threads), st>>>(
-      x, s, n, o, k, V, top_k, top_p);
+  const int smem = smem_total(V, threads), bits = mass_bits_for(V);
+  if (V > SMEM_V)
+    sample_kernel<true><<<(unsigned)M, threads, smem, st>>>(x, s, n, o, k, V, top_k,
+                                                           top_p, bits);
+  else
+    sample_kernel<false><<<(unsigned)M, threads, smem, st>>>(x, s, n, o, k, V, top_k,
+                                                            top_p, bits);
   return (int)cudaGetLastError();
 }
 

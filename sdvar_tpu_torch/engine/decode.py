@@ -36,12 +36,15 @@ from sdvar_tpu_torch.models import quantizer as Q
 from sdvar_tpu_torch.models import var as M
 from sdvar_tpu_torch.models import vqvae as VQ
 from sdvar_tpu_torch.models.var import KVCache
-from sdvar_tpu_torch.ops.partition import data_rows, gather_data
+from sdvar_tpu_torch.ops.kernels.sampling import gumbel_from_bits, rowhash_bits
+from sdvar_tpu_torch.ops.partition import data_rows, gather_data, gather_vocab
 from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
 from sdvar_tpu_torch.ops.sampling import (
     cfg_double,
     cfg_mix,
     cfg_pair,
+    fold_seeds,
+    gumbel_softmax,
     request_seeds,
     row_seeds,
     sample_with_top_k_top_p,
@@ -50,6 +53,19 @@ from sdvar_tpu_torch.utils.device import full_f32, resolve_device
 
 Seeds = Union[int, Sequence[int], torch.Tensor]
 Cache = Union[KVCache, QuantizedKVCache]
+
+SMOOTH_STREAM = 0x5300  # the more_smooth noise's sub-stream of a row's seed
+
+
+def smooth_embed(mixed: torch.Tensor, ratio: float, codebook: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+    """``more_smooth``'s scale embedding: the codebook weighted by a
+    Gumbel-softmax of the CFG'd logits (B, l, V) times (1 + ratio), at
+    temperature max(0.27 * (1 - 0.95 ratio), 0.005), with the given (B, l,
+    V) Gumbel ``noise`` -> (B, l, Cvae) f32."""
+    tau = max(0.27 * (1 - ratio * 0.95), 0.005)
+    soft = gumbel_softmax(mixed * (1 + ratio), noise, tau=tau)
+    return torch.einsum("blv,vc->blc", soft, codebook.float())
 
 
 @dataclasses.dataclass
@@ -118,8 +134,6 @@ def scale_step(
     """One scale of KV-cached CFG decode -> (state', ids (B, pn^2) int32).
     ``attn_bias``: an optional (pn^2, kv_len) additive bias for this step
     (None attends the whole cache, the baseline)."""
-    if samp.more_smooth:
-        raise NotImplementedError("more_smooth sampling is not ported")
     pn = var_cfg.patch_nums[si]
     bg, ed = var_cfg.begin_ends[si]
     B = sos.shape[0] // 2
@@ -138,12 +152,23 @@ def scale_step(
                             mods=mods)
     logits = M.get_logits(var_cfg, params, h, sos)  # (2B, pn^2, V) f32
 
-    t = samp.cfg * si / var_cfg.num_stages_minus_1
-    mixed = cfg_mix(logits, t)
-    ids = sample_with_top_k_top_p(mixed, row_seeds(state.seeds, si, pn * pn),
-                                  samp.top_k, samp.top_p)
+    ratio = si / var_cfg.num_stages_minus_1
+    mixed = cfg_mix(logits, samp.cfg * ratio)
+    seeds = row_seeds(state.seeds, si, pn * pn)
+    ids = sample_with_top_k_top_p(mixed, seeds, samp.top_k, samp.top_p,
+                                  vocab=var_cfg.vocab_size)
 
-    h_BlC = Q.embed(quant_params, ids)                        # (B, pn^2, Cvae)
+    if samp.more_smooth:
+        # the whole codebook mixed by a Gumbel-softmax (visualisation only,
+        # not for FID); its noise from the rows' own stream, folded apart
+        noise = gumbel_from_bits(rowhash_bits(row_seeds(
+            fold_seeds(state.seeds, SMOOTH_STREAM), si, pn * pn),
+            var_cfg.vocab_size))
+        h_BlC = smooth_embed(gather_vocab(mixed, var_cfg.vocab_size), ratio,
+                             quant_params["codebook"],
+                             noise.view(B, pn * pn, -1))
+    else:
+        h_BlC = Q.embed(quant_params, ids)                    # (B, pn^2, Cvae)
     h_BChw = h_BlC.transpose(1, 2).reshape(B, var_cfg.Cvae, pn, pn)
     f_hat, next_map = Q.next_autoregressive_input(
         vae_cfg, quant_params, si, state.f_hat, h_BChw)

@@ -66,7 +66,6 @@ from sdvar_tpu_torch.ops.partition import data_rows, get_tp_mesh, set_tp_mesh
 from sdvar_tpu_torch.ops.quantization import QuantizedKVCache
 from sdvar_tpu_torch.parallel import distributed as DIST
 from sdvar_tpu_torch.parallel.mesh import (
-    check_var_divisible,
     create_mesh,
     shard_tree,
     var_param_specs,
@@ -157,13 +156,12 @@ class GenerationServer:
                 raise ValueError(f"buckets {self.buckets} do not divide over "
                                  f"data={mesh_cfg.data}")
             self.mesh = create_mesh(mesh_cfg)
-            check_var_divisible(var_cfg, self.mesh)
-            var_params = shard_tree(var_params, var_param_specs(var_cfg),
-                                    self.mesh)
+            var_params = shard_tree(
+                var_params, var_param_specs(var_cfg, self.mesh), self.mesh)
             if draft_cfg is not None:
-                check_var_divisible(draft_cfg, self.mesh)
-                draft_params = shard_tree(draft_params,
-                                          var_param_specs(draft_cfg), self.mesh)
+                draft_params = shard_tree(
+                    draft_params, var_param_specs(draft_cfg, self.mesh),
+                    self.mesh)
             set_tp_mesh(self.mesh)
         self._spmd = self.mesh is not None and DIST.get_world_size() > 1
         self.var_cfg, self.vae_cfg = var_cfg, vae_cfg

@@ -69,7 +69,7 @@ from sdvar_tpu_torch.ops.masks import (
 from sdvar_tpu_torch.ops.partition import (
     data_rows,
     gather_data,
-    gather_model,
+    gather_vocab,
     get_tp_mesh,
     reduce_data,
 )
@@ -165,7 +165,7 @@ def _sample_scale(cfg: VARConfig, vae_cfg: VQVAEConfig, quant_params, si: int,
     update the state."""
     ids = sample_with_top_k_top_p(
         mixed, row_seeds(state.seeds, si, cfg.patch_nums[si] ** 2),
-        samp.top_k, samp.top_p)
+        samp.top_k, samp.top_p, vocab=cfg.vocab_size)
     f_hat, next_map = _apply_tokens(cfg, vae_cfg, quant_params, si,
                                     state.f_hat, ids)
     return dataclasses.replace(state, f_hat=f_hat, next_map=next_map), ids
@@ -206,7 +206,7 @@ def _target_verify_window(cfg: VARConfig, params, start: int, gamma: int,
                             cache_begin=bg0, kv_len=kv_len, mods=mods)
     logits = M.get_logits(cfg, params, h, sos)  # (2B, Lq, V) f32
     mixed = cfg_mix(logits, _t_per_token(pns, samp.cfg, start, gamma, x.device))
-    whole = gather_model(mixed, dim=-1)
+    whole = gather_vocab(mixed, cfg.vocab_size)
     argmax, per_scale = [], []
     pos = 0
     for k in range(start, start + gamma):

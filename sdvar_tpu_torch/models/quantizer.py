@@ -1,13 +1,15 @@
-"""Multi-scale residual vector quantizer, decode half (the counterpart of
+"""Multi-scale residual vector quantizer (the counterpart of
 ``sdvar_tpu/models/quantizer.py``): the codebook gather, the phi convs and
-the per-scale state update of the generation loop. f32 throughout; the
-resizes are dense f32 einsums (ops/resize.py).
+the per-scale state update of the generation loop; the residual-pyramid
+``encode`` (nearest codebook entry per scale), ``idx_to_var_input`` (the
+training forward's teacher-forcing input) and ``embed_to_fhat``. f32
+throughout; the resizes are dense f32 einsums (ops/resize.py).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,3 +79,90 @@ def next_autoregressive_input(
         return f_hat, area_resize(f_hat, (nxt, nxt))
     f_hat = f_hat + phi_apply(cfg, params, si, h_BChw)
     return f_hat, f_hat
+
+
+def lookup_codes(cfg: VQVAEConfig, params: Params, z_NC: torch.Tensor
+                 ) -> torch.Tensor:
+    """Nearest codebook index of each row (N, C) -> (N,) int32: argmin of
+    ||z||^2 + ||e||^2 - 2 z.e, or with ``using_znorm`` argmax of the
+    cosine similarity; ties go to the first index."""
+    E = params["codebook"].float()
+    z = z_NC.float()
+    if cfg.using_znorm:
+        zn = z / z.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        En = E / E.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        return (zn @ En.t()).argmax(dim=-1).to(torch.int32)
+    d = (z * z).sum(-1, keepdim=True) + (E * E).sum(-1)[None] - 2.0 * (z @ E.t())
+    return d.argmin(dim=-1).to(torch.int32)
+
+
+def _upsample_refine(cfg: VQVAEConfig, params: Params, si: int,
+                     h_BChw: torch.Tensor, hw: int) -> torch.Tensor:
+    """A scale's embedding map bicubic-upsampled to the full grid, then
+    phi."""
+    if h_BChw.shape[-1] != hw:
+        h_BChw = bicubic_resize(h_BChw, (hw, hw))
+    return phi_apply(cfg, params, si, h_BChw)
+
+
+def encode(cfg: VQVAEConfig, params: Params, f_BChw: torch.Tensor,
+           patch_nums: Optional[Sequence[int]] = None,
+           return_fhat: bool = False) -> List[torch.Tensor]:
+    """Residual-pyramid encode of f (B, C, H, W): per scale the residual is
+    area-resized to (pn, pn), looked up in the codebook, and its embedding
+    upsampled, refined by phi, added to f_hat and taken off the residual.
+    Returns the per-scale ids (B, pn*pn) int32, or the running f_hat of
+    each scale with ``return_fhat``."""
+    pns = tuple(patch_nums or cfg.patch_nums)
+    B, C, H, W = f_BChw.shape
+    if not pns[-1] == H == W:
+        raise ValueError(f"encode: patch_nums {pns} end at {pns[-1]}, "
+                         f"f is {H}x{W}")
+    f_rest = f_BChw.float()
+    f_hat = torch.zeros_like(f_rest)
+    out = []
+    for si, pn in enumerate(pns):
+        z = f_rest if si == len(pns) - 1 else area_resize(f_rest, (pn, pn))
+        idx_N = lookup_codes(cfg, params, z.permute(0, 2, 3, 1).reshape(-1, C))
+        h = embed(params, idx_N).reshape(B, pn, pn, C).permute(0, 3, 1, 2)
+        h = _upsample_refine(cfg, params, si, h, H)
+        f_hat = f_hat + h
+        f_rest = f_rest - h
+        out.append(f_hat if return_fhat else idx_N.reshape(B, pn * pn))
+    return out
+
+
+def idx_to_var_input(cfg: VQVAEConfig, params: Params,
+                     gt_idx_Bl: List[torch.Tensor]) -> torch.Tensor:
+    """Teacher-forcing input of the training forward: for each scale but
+    the last, f_hat rebuilt from the ground-truth ids and area-resized to
+    the next scale; concatenated -> (B, L - first_l, Cvae) f32."""
+    pns = cfg.patch_nums
+    B = gt_idx_Bl[0].shape[0]
+    C, HW = cfg.Cvae, pns[-1]
+    f_hat = torch.zeros((B, C, HW, HW), device=gt_idx_Bl[0].device)
+    pieces = []
+    for si in range(len(pns) - 1):
+        pn = pns[si]
+        h = embed(params, gt_idx_Bl[si]).reshape(B, pn, pn, C).permute(0, 3, 1, 2)
+        h = bicubic_resize(h, (HW, HW)) if pn != HW else h
+        f_hat = f_hat + phi_apply(cfg, params, si, h)
+        nxt = pns[si + 1]
+        nmap = area_resize(f_hat, (nxt, nxt))
+        pieces.append(nmap.reshape(B, C, nxt * nxt).transpose(1, 2))
+    return torch.cat(pieces, dim=1)
+
+
+def embed_to_fhat(cfg: VQVAEConfig, params: Params,
+                  ms_h_BChw: List[torch.Tensor], last_one: bool = False):
+    """Accumulate per-scale embedding maps (B, C, pn, pn) into f_hat: the
+    running f_hat of each scale, or only the last with ``last_one``."""
+    HW = cfg.patch_nums[-1]
+    B = ms_h_BChw[0].shape[0]
+    f_hat = torch.zeros((B, cfg.Cvae, HW, HW), device=ms_h_BChw[0].device)
+    outs = []
+    for si, h in enumerate(ms_h_BChw):
+        f_hat = f_hat + _upsample_refine(cfg, params, si, h.float(), HW)
+        if not last_one:
+            outs.append(f_hat)
+    return f_hat if last_one else outs

@@ -1,5 +1,6 @@
-"""VAR decoder-only transformer over the flattened scale sequence, inference
-only (the counterpart of ``sdvar_tpu/models/var.py``).
+"""VAR decoder-only transformer over the flattened scale sequence (the
+counterpart of ``sdvar_tpu/models/var.py``): the KV-cached inference
+forward and the teacher-forcing training forward ``var_train_forward``.
 
 Parameters are a nested dict of tensors with the JAX package's layout:
 per-layer tensors stacked on a leading ``depth`` axis, linear weights as
@@ -9,12 +10,23 @@ loop over layers. Casts follow the JAX package: LayerNorm statistics in
 f32, AdaLN modulations in f32 cast to the activation dtype, the head
 (AdaLN-before-head + classifier) in f32.
 
+Training: ``apply_transformer`` takes the stochastic-depth and proj/FFN
+dropout keep masks of ``draw_train_masks`` (the JAX package's rates:
+``linspace(0, dpr, depth)``, (B, 1, 1) keep masks divided by
+``max(1 - rate, 1e-6)``) and ``remat`` (``torch.utils.checkpoint`` per
+block). Randomness comes from an explicit ``torch.Generator``, or the
+draws are handed in.
+
 Under a mesh with a model split (``ops.partition.set_tp_mesh``) the tree is
 this rank's shard (``parallel.mesh.shard_tree``) and each rank runs its
 local heads and local FFN hidden: qkv and fc1 by output column, proj and
 fc2 by input row with one all-reduce (sum) each, their biases added once
 after it; AdaLN's 6C columns are all-gathered once per generation, and
-the head's vocab columns stay split (``get_logits``). Values that every
+the head's vocab columns stay split (``get_logits``). Each of the four
+widths (heads, FFN hidden, AdaLN 6C, vocab) splits only where it divides
+over "model" (``ops.partition.model_split(width)``); one that does not is
+held whole on every rank and computed unsplit, with the unsharded layer's
+launches and no collective. Values that every
 model rank holds (h, the modulations) stay bit-identical across ranks:
 they come from collectives that hand every rank the same bits. A
 quantized amax over a split axis (the INT8 KV scales, the W8A8
@@ -30,6 +42,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from sdvar_tpu_torch.config import VARConfig
 from sdvar_tpu_torch.ops.attention import (
@@ -37,6 +50,7 @@ from sdvar_tpu_torch.ops.attention import (
     attention_cache_write,
     use_cache_kernel,
 )
+from sdvar_tpu_torch.ops.masks import block_causal_prefix, device_bias
 from sdvar_tpu_torch.ops.partition import gather_model, model_split
 from sdvar_tpu_torch.ops.quantization import (
     QuantizedKVCache,
@@ -178,11 +192,13 @@ def cond_six(cfg: VARConfig, params: Params, cond_BD: torch.Tensor
              ) -> torch.Tensor:
     """Shared part of the AdaLN conditioning, f32: silu(cond) (B, D), or,
     with shared AdaLN, the (B, 1, 6, C) shared projection (its 6C columns
-    all-gathered under a model split)."""
+    all-gathered where they split over "model")."""
     c = F.silu(cond_BD.float())
     if cfg.shared_aln:
         sal = params["shared_ada_lin"]
-        g = gather_model(c @ sal["w"].float() + sal["b"])
+        g = c @ sal["w"].float() + sal["b"]
+        if model_split(6 * cfg.embed_dim) > 1:
+            g = gather_model(g)
         return g.reshape(-1, 1, 6, cfg.embed_dim)
     return c
 
@@ -190,9 +206,9 @@ def cond_six(cfg: VARConfig, params: Params, cond_BD: torch.Tensor
 def precompute_modulations(cfg: VARConfig, params: Params,
                            cond_BD: torch.Tensor) -> torch.Tensor:
     """All-layer AdaLN modulations (depth, B, 6, C) f32, computed once per
-    generation (they depend on the class conditioning only); under a model
-    split each rank computes its 6C columns and one all-gather joins
-    them."""
+    generation (they depend on the class conditioning only); where 6C
+    splits over "model" each rank computes its columns and one all-gather
+    joins them."""
     C = cfg.embed_dim
     cond_pre = cond_six(cfg, params, cond_BD)
     blocks = params["blocks"]
@@ -208,7 +224,9 @@ def precompute_modulations(cfg: VARConfig, params: Params,
         (c64 @ resolve_weight(layer_slice(w_all, li), torch.float64)).float() + b
         for li, b in enumerate(blocks["ada_lin_b"])
     ])
-    return gather_model(six).reshape(cfg.depth, -1, 6, C)
+    if model_split(6 * C) > 1:
+        six = gather_model(six)
+    return six.reshape(cfg.depth, -1, 6, C)
 
 
 def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
@@ -225,8 +243,8 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
     makes (bf16; f32 under an f32 or bf16 model; int8); any other pairing
     of cache and model dtype raises."""
     B, L, _ = x.shape
-    tp, hd = model_split(), cfg.head_dim
-    H = cfg.num_heads // tp  # this rank's heads
+    tp, hd = model_split(cfg.num_heads), cfg.head_dim
+    H = cfg.num_heads // tp  # this rank's heads (all of them if unsplit)
     C = H * hd
     if layer["q_bias"].shape[-1] != C:
         raise ValueError(f"q_bias has {layer['q_bias'].shape[-1]} columns, "
@@ -278,7 +296,8 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
                 k, v = k.to(x.dtype), v.to(x.dtype)
         out = attention(q, k, v, attn_bias, scale, kv_scales=kv_scales)
     out = out.reshape(B, L, C)
-    return linear_rows(out, layer["proj_w"], x.dtype) + layer["proj_b"].to(x.dtype)
+    return linear_rows(out, layer["proj_w"], x.dtype, tp) \
+        + layer["proj_b"].to(x.dtype)
 
 
 def _quantize_kv(k, v, B, L, C, sharded):
@@ -293,13 +312,15 @@ def _quantize_kv(k, v, B, L, C, sharded):
     return (q[0], s[0]), (q[1], s[1])
 
 
-def _ffn(layer: Dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: VARConfig, layer: Dict, x: torch.Tensor) -> torch.Tensor:
     """MLP with tanh-GELU. A W8A8 fc2 takes the fused route: fc1, then
     bias + GELU (f32) + per-token int8 quantization in one pass, then the
-    exact s8 x s8 -> s32 product. Under a model split fc1's hidden columns
-    and fc2's rows are this rank's: the quantization takes the whole row's
-    scale and fc2 sums its partial products over the model ranks."""
-    fc2, sharded = layer["fc2_w"], model_split() > 1
+    exact s8 x s8 -> s32 product. Where the hidden width splits over
+    "model", fc1's hidden columns and fc2's rows are this rank's: the
+    quantization takes the whole row's scale and fc2 sums its partial
+    products over the model ranks."""
+    split = model_split(cfg.mlp_hidden)
+    fc2, sharded = layer["fc2_w"], split > 1
     if isinstance(fc2, W8A8Linear):
         h = linear_blc(x, layer["fc1_w"], x.dtype)  # bias goes into the pass
         hq, hs = quantize_activation(h, layer["fc1_b"], gelu=True,
@@ -308,7 +329,7 @@ def _ffn(layer: Dict, x: torch.Tensor) -> torch.Tensor:
             + layer["fc2_b"].to(x.dtype)
     h = linear_blc(x, layer["fc1_w"], x.dtype) + layer["fc1_b"].to(x.dtype)
     h = F.gelu(h, approximate="tanh")
-    return linear_rows(h, fc2, x.dtype) + layer["fc2_b"].to(x.dtype)
+    return linear_rows(h, fc2, x.dtype, split) + layer["fc2_b"].to(x.dtype)
 
 
 def apply_transformer(
@@ -317,36 +338,111 @@ def apply_transformer(
     cache: Union[KVCache, QuantizedKVCache, None] = None,
     cache_begin: int = 0, kv_len: int = 0,
     mods: Optional[torch.Tensor] = None,
+    masks: Optional[Dict[str, torch.Tensor]] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Run the block stack (no dropout, no drop-path: inference only).
+    """Run the block stack.
 
     x: (B, L, C) in the compute dtype; cond_BD: (B, D) class embedding;
     attn_bias: optional (Lq, Lk) additive bias; cache: optional KVCache or
     QuantizedKVCache updated in place (new tokens at ``cache_begin``,
     attention over keys [0, kv_len)); mods: optional precomputed
-    (depth, B, 6, C) modulations."""
+    (depth, B, 6, C) modulations. ``masks``: the training draws of
+    ``draw_train_masks`` (stochastic depth and proj/FFN dropout; None:
+    neither). ``remat``: recompute each block in the backward
+    (``torch.utils.checkpoint``), without a cache."""
     if mods is None:
         mods = precompute_modulations(cfg, params, cond_BD)
+    if remat and cache is not None:
+        raise ValueError("remat recomputes blocks without a KV cache")
+    masks = masks or {}
+    path_keep, drop_keep = masks.get("path_keep"), masks.get("drop_keep")
+    # the division of a kept branch, max(1 - rate, 1e-6), in f32
+    divs = (np.maximum(np.float32(1.0) - drop_path_rates(cfg), np.float32(1e-6))
+            if path_keep is not None else None)
     blocks = params["blocks"]
     h = x
     for li in range(cfg.depth):
         layer = {name: layer_slice(t, li) for name, t in blocks.items()}
-        g1, g2, s1, s2, sh1, sh2 = (mods[li][:, None, i].to(h.dtype)
-                                    for i in range(6))
-        a_in = _ln(h, cfg.norm_eps) * (1.0 + s1) + sh1
-        h = h + _attention(cfg, layer, a_in, attn_bias, cache, li,
-                           cache_begin, kv_len) * g1
-        f_in = _ln(h, cfg.norm_eps) * (1.0 + s2) + sh2
-        h = h + _ffn(layer, f_in) * g2
+        args = (mods[li], attn_bias,
+                None if path_keep is None else path_keep[li],
+                None if drop_keep is None else drop_keep[li],
+                None if divs is None else float(divs[li]))
+        if remat:
+            h = checkpoint(_block, cfg, layer, h, *args, cache, li,
+                           cache_begin, kv_len, use_reentrant=False)
+        else:
+            h = _block(cfg, layer, h, *args, cache, li, cache_begin, kv_len)
     return h
+
+
+def _block(cfg: VARConfig, layer: Dict, h: torch.Tensor, mod: torch.Tensor,
+           attn_bias, path_keep, drop_keep, div, cache, li: int,
+           cache_begin: int, kv_len: int) -> torch.Tensor:
+    """One pre-norm AdaLN block: attention, then the FFN, each branch
+    through dropout (``drop_keep`` (2, B, L, C)), its gamma and stochastic
+    depth (``path_keep`` (2, B), a kept branch divided by ``div``), in the
+    JAX package's order."""
+    g1, g2, s1, s2, sh1, sh2 = (mod[:, None, i].to(h.dtype) for i in range(6))
+    a_in = _ln(h, cfg.norm_eps) * (1.0 + s1) + sh1
+    a_out = _attention(cfg, layer, a_in, attn_bias, cache, li, cache_begin,
+                       kv_len)
+    h = h + _branch(cfg, a_out, g1, path_keep, drop_keep, div, 0)
+    f_in = _ln(h, cfg.norm_eps) * (1.0 + s2) + sh2
+    f_out = _ffn(cfg, layer, f_in)
+    return h + _branch(cfg, f_out, g2, path_keep, drop_keep, div, 1)
+
+
+def _branch(cfg: VARConfig, t: torch.Tensor, gamma: torch.Tensor, path_keep,
+            drop_keep, div, j: int) -> torch.Tensor:
+    """A branch's output into the residual: dropout (kept / (1 - rate)),
+    times gamma, then stochastic depth (kept / ``div``)."""
+    if drop_keep is not None:
+        t = t * drop_keep[j].to(t.dtype) / torch.tensor(
+            1.0 - cfg.drop_rate, dtype=torch.float64).to(t.dtype)
+    t = t * gamma
+    if path_keep is not None:
+        keep = path_keep[j].to(t.dtype)[:, None, None]
+        t = t * keep / torch.tensor(div, dtype=torch.float32).to(t.dtype)
+    return t
+
+
+def drop_path_rates(cfg: VARConfig) -> np.ndarray:
+    """Per-layer stochastic-depth rates, ``linspace(0, dpr, depth)`` in
+    f32."""
+    return np.linspace(0.0, cfg.dpr, cfg.depth).astype(np.float32)
+
+
+def draw_train_masks(cfg: VARConfig, B: int, L: int, generator: torch.Generator,
+                     device) -> Dict[str, torch.Tensor]:
+    """One training forward's random draws, from ``generator`` on
+    ``device``: ``cond_drop`` (B,) bool, the rows whose label becomes the
+    unconditional class (rate ``cond_drop_rate``); ``path_keep``
+    (depth, 2, B) bool, stochastic depth of the attention and FFN branches
+    at ``drop_path_rates`` (when dpr > 0); ``drop_keep``
+    (depth, 2, B, L, C) bool, proj/FFN dropout (when ``drop_rate`` > 0).
+    Absent entries are not applied."""
+    out = {}
+    if cfg.cond_drop_rate > 0:
+        out["cond_drop"] = torch.rand((B,), generator=generator,
+                                      device=device) < cfg.cond_drop_rate
+    if cfg.dpr > 0:
+        keep = torch.from_numpy(1.0 - drop_path_rates(cfg)).to(device)
+        u = torch.rand((cfg.depth, 2, B), generator=generator, device=device)
+        out["path_keep"] = u < keep[:, None, None]
+    if cfg.drop_rate > 0:
+        u = torch.rand((cfg.depth, 2, B, L, cfg.embed_dim),
+                       generator=generator, device=device)
+        out["drop_keep"] = u < 1.0 - cfg.drop_rate
+    return out
 
 
 def get_logits(cfg: VARConfig, params: Params, h: torch.Tensor,
                cond_BD: torch.Tensor) -> torch.Tensor:
-    """AdaLN-before-head + classifier, f32 throughout. Under a model split
-    the logits are this rank's vocab columns: the sampler gathers them
-    (``ops.partition.sharded_fused_sample``), as does an argmax over the
-    vocab (``gather_model``)."""
+    """AdaLN-before-head + classifier, f32 throughout. Where the vocab
+    splits over "model" the logits are this rank's vocab columns: the
+    sampler gathers them (``ops.partition.sharded_fused_sample``), as does
+    an argmax over the vocab (``ops.partition.gather_vocab``)."""
     C = cfg.embed_dim
     hn = params["head_nm"]
     ss = F.silu(cond_BD.float()) @ hn["w"].float() + hn["b"]
@@ -369,3 +465,58 @@ def lvl_pos_embed(cfg: VARConfig, params: Params) -> torch.Tensor:
         [np.full(pn * pn, i) for i, pn in enumerate(cfg.patch_nums)])
     idx = torch.as_tensor(lvl_1L, device=params["lvl_embed"].device)
     return params["lvl_embed"][idx] + params["pos_1LC"]
+
+
+def var_train_forward(
+    cfg: VARConfig, params: Params, label_B: torch.Tensor,
+    x_BLCv_wo_first_l: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    masks: Optional[Dict[str, torch.Tensor]] = None,
+    attn_bias: Optional[torch.Tensor] = None,
+    dtype=torch.float32,
+    prog_si: int = -1,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Teacher-forcing forward -> logits (B, L', V) f32.
+
+    ``x_BLCv_wo_first_l``: (B, L - first_l, Cvae) inputs of the scales
+    after the first (``models.quantizer.idx_to_var_input``). Training
+    randomness (cond-embedding dropout, stochastic depth, proj/FFN
+    dropout) is drawn from ``generator`` (``draw_train_masks``), or given
+    as ``masks``; with neither the forward is deterministic. ``attn_bias``
+    defaults to the block-causal mask. ``prog_si`` >= 0: progressive
+    training, the sequence and the mask cut at ``begin_ends[prog_si][1]``.
+    """
+    B = x_BLCv_wo_first_l.shape[0]
+    dev = x_BLCv_wo_first_l.device
+    ed = cfg.L if prog_si < 0 else cfg.begin_ends[prog_si][1]
+    if masks is None and generator is not None:
+        masks = draw_train_masks(cfg, B, ed, generator, dev)
+    masks = masks or {}
+    label_B = torch.as_tensor(label_B, device=dev).long()
+    if "cond_drop" in masks:
+        label_B = torch.where(masks["cond_drop"], cfg.num_classes, label_B)
+
+    sos = params["class_emb"][label_B]  # (B, C)
+    x = sos[:, None, :] + params["pos_start"][None]  # (B, first_l, C)
+    if ed > cfg.first_l:
+        we = word_embed(params, x_BLCv_wo_first_l[:, : ed - cfg.first_l],
+                        torch.float32)
+        x = torch.cat([x.float(), we], dim=1)
+    x = (x + lvl_pos_embed(cfg, params)[None, :ed]).to(dtype)
+    if attn_bias is None:
+        attn_bias = device_bias(dev, block_causal_prefix,
+                                tuple(cfg.patch_nums), ed)
+    h = apply_transformer(cfg, params, x, sos, attn_bias=attn_bias,
+                          masks=masks, remat=remat)
+    return get_logits(cfg, params, h, sos)
+
+
+def count_params(params: Params) -> int:
+    """The number of elements of a tree's leaves (a quantized leaf counts
+    its values and its scales, as the JAX package's tree leaves do)."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return params.numel()

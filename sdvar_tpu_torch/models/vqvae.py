@@ -1,13 +1,17 @@
-"""VQVAE pixel decoder (the decoder half of ``sdvar_tpu/models/vqvae.py``):
-GroupNorm(32) + swish ResNet blocks, single-head non-local attention at the
-lowest resolution and in the mid block, nearest x2 upsampling + conv.
+"""VQVAE (the counterpart of ``sdvar_tpu/models/vqvae.py``): the conv
+encoder that tokenizes training images (``img_to_f``, ``img_to_idxBl`` and
+their bf16 and channels-last forms) and the pixel decoder: GroupNorm(32) +
+swish ResNet blocks, single-head non-local attention at the lowest
+resolution and in the mid block, strided-conv downsampling with (0, 1, 0,
+1) padding, nearest x2 upsampling + conv.
 
 Two layouts of the same program on the same OIHW weights:
 
-- NCHW, f32 throughout: the golden pixel path. ``fhat_to_img`` turns TF32
-  off while it runs (``utils.device.full_f32``), so the convolutions run in
-  full f32 as the JAX package's ``Precision.HIGHEST`` does.
-  ``fhat_to_img_bf16`` runs it in bf16.
+- NCHW, f32 throughout: the golden pixel path and the training tokenizer.
+  ``fhat_to_img`` and ``img_to_f`` turn TF32 off while they run
+  (``utils.device.full_f32``), so the convolutions run in full f32 as the
+  JAX package's ``Precision.HIGHEST`` does. ``fhat_to_img_bf16`` and
+  ``img_to_f_bf16`` run it in bf16 (GroupNorm statistics f32).
 - Channels-last, the serving pixel path: ``fhat_to_img_nhwc`` (bf16, or f32
   with TF32 off), and the W8A8 decoders whose eligible 3x3 convs run
   through the int8 kernel (``ops/conv_s8.py``). Activations keep their
@@ -87,6 +91,30 @@ def upsample2x(p: Params, x: torch.Tensor) -> torch.Tensor:
     return conv2d(p, x)
 
 
+def downsample2x(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Pad right and bottom by 1, then a 3x3 stride-2 conv."""
+    return conv2d(p, F.pad(x, (0, 1, 0, 1)), stride=2, padding=0)
+
+
+def encoder_forward(cfg: VQVAEConfig, p: Params, x: torch.Tensor
+                    ) -> torch.Tensor:
+    """(B, 3, H, W) in [-1, 1] -> (B, Cvae, H/16, W/16)."""
+    nres = len(cfg.ch_mult)
+    h = conv2d(p["conv_in"], x)
+    for i, level in enumerate(p["down"]):
+        for j in range(cfg.num_res_blocks):
+            h = resnet_block(level["block"][j], h)
+            if level["attn"]:
+                h = attn_block(level["attn"][j], h)
+        if i != nres - 1:
+            h = downsample2x(level["downsample"], h)
+    h = resnet_block(p["mid"]["block_1"], h)
+    if cfg.using_mid_sa:
+        h = attn_block(p["mid"]["attn_1"], h)
+    h = resnet_block(p["mid"]["block_2"], h)
+    return conv2d(p["conv_out"], swish(group_norm(p["norm_out"], h)))
+
+
 def decoder_forward(cfg: VQVAEConfig, p: Params, z: torch.Tensor
                     ) -> torch.Tensor:
     """(B, Cvae, h, w) -> (B, 3, 16h, 16w)."""
@@ -113,6 +141,51 @@ def fhat_to_img(cfg: VQVAEConfig, p: Params, f_hat: torch.Tensor
     """f_hat (B, Cvae, HW, HW) -> image in [-1, 1], f32 NCHW."""
     z = conv2d(p["post_quant_conv"], f_hat.float())
     return decoder_forward(cfg, p["decoder"], z).clamp(-1.0, 1.0)
+
+
+@full_f32()
+def img_to_f(cfg: VQVAEConfig, p: Params, img: torch.Tensor) -> torch.Tensor:
+    """Image (B, 3, H, W) in [-1, 1] -> latent f (B, Cvae, H/16, W/16),
+    f32 NCHW with TF32 off."""
+    f = encoder_forward(cfg, p["encoder"], img.float())
+    return conv2d(p["quant_conv"], f)
+
+
+@full_f32()
+def img_to_idxBl(cfg: VQVAEConfig, p: Params, img: torch.Tensor,
+                 patch_nums=None) -> List[torch.Tensor]:
+    """Image -> per-scale token ids, each (B, pn*pn) int32, through the
+    f32 encoder and the residual quantizer."""
+    return Q.encode(cfg, p["quant"], img_to_f(cfg, p, img),
+                    patch_nums=patch_nums)
+
+
+def img_to_f_bf16(cfg: VQVAEConfig, p: Params, img: torch.Tensor
+                  ) -> torch.Tensor:
+    """The NCHW encoder with bf16 weights and activations (GroupNorm
+    statistics f32) -> f32 latent."""
+    pc = _cast({"encoder": p["encoder"], "quant_conv": p["quant_conv"]},
+               torch.bfloat16)
+    f = encoder_forward(cfg, pc["encoder"], img.to(torch.bfloat16))
+    return conv2d(pc["quant_conv"], f).float()
+
+
+@full_f32()
+def img_to_idxBl_bf16(cfg: VQVAEConfig, p: Params, img: torch.Tensor,
+                      patch_nums=None) -> List[torch.Tensor]:
+    """``img_to_idxBl`` through the bf16 encoder (the quantizer stays
+    f32)."""
+    return Q.encode(cfg, p["quant"], img_to_f_bf16(cfg, p, img),
+                    patch_nums=patch_nums)
+
+
+@full_f32()
+def img_to_reconstructed_img(cfg: VQVAEConfig, p: Params, img: torch.Tensor
+                             ) -> torch.Tensor:
+    """Image -> tokens -> image in [-1, 1], the f32 paths both ways."""
+    fhats = Q.encode(cfg, p["quant"], img_to_f(cfg, p, img),
+                     return_fhat=True)
+    return fhat_to_img(cfg, p, fhats[-1])
 
 
 def _cast(tree, dtype):
@@ -256,6 +329,56 @@ def attn_block_nhwc(p: Params, x: torch.Tensor, plan=None) -> torch.Tensor:
     return x + conv2d_nhwc(p["proj_out"], _nchw(h), padding=0, plan=plan)
 
 
+def downsample2x_nhwc(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Pad right and bottom by 1 (channels_last kept), then a 3x3 stride-2
+    conv."""
+    x = F.pad(x, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
+    return conv2d_nhwc(p, x, stride=2, padding=0)
+
+
+def encoder_forward_nhwc(cfg: VQVAEConfig, p: Params, x: torch.Tensor
+                         ) -> torch.Tensor:
+    """(B, 3, H, W) channels_last -> (B, Cvae, H/16, W/16) channels_last;
+    the program of ``encoder_forward``."""
+    nres = len(cfg.ch_mult)
+    h = conv2d_nhwc(p["conv_in"], x)
+    for i, level in enumerate(p["down"]):
+        for j in range(cfg.num_res_blocks):
+            h = resnet_block_nhwc(level["block"][j], h)
+            if level["attn"]:
+                h = attn_block_nhwc(level["attn"][j], h)
+        if i != nres - 1:
+            h = downsample2x_nhwc(level["downsample"], h)
+    h = resnet_block_nhwc(p["mid"]["block_1"], h)
+    if cfg.using_mid_sa:
+        h = attn_block_nhwc(p["mid"]["attn_1"], h)
+    h = resnet_block_nhwc(p["mid"]["block_2"], h)
+    return conv2d_nhwc(p["conv_out"], swish(group_norm_nhwc(p["norm_out"], h)))
+
+
+def img_to_f_nhwc(cfg: VQVAEConfig, p: Params, img: torch.Tensor,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """The channels-last encoder, bf16 or f32 with TF32 off; image NCHW
+    in, f32 contiguous NCHW latent out."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"img_to_f_nhwc: dtype {dtype} (bfloat16 or float32)")
+    with full_f32():  # only f32 convs read it; bf16 ones run as they are
+        x = img.to(dtype=dtype, memory_format=torch.channels_last)
+        f = encoder_forward_nhwc(cfg, p["encoder"], x)
+        f = conv2d_nhwc(p["quant_conv"], f)
+        return f.float().contiguous()
+
+
+@full_f32()
+def img_to_idxBl_nhwc(cfg: VQVAEConfig, p: Params, img: torch.Tensor,
+                      patch_nums=None, dtype=torch.bfloat16
+                      ) -> List[torch.Tensor]:
+    """Tokenize through the channels-last encoder (bf16 by default) and the
+    f32 residual quantizer."""
+    return Q.encode(cfg, p["quant"], img_to_f_nhwc(cfg, p, img, dtype),
+                    patch_nums=patch_nums)
+
+
 def upsample2x_nhwc(p: Params, x: torch.Tensor, plan=None) -> torch.Tensor:
     """Nearest x2 (channels_last in and out) then conv."""
     return conv2d_nhwc(p, F.interpolate(x, scale_factor=2, mode="nearest"),
@@ -366,8 +489,7 @@ def fhat_to_img_nhwc_w8a8_static(cfg: VQVAEConfig, p: Params,
 
 # ---------------------------------------------------------------------------
 # init: the JAX initialisers' distributions (convs and biases uniform in
-# +/- 1/sqrt(fan_in), GroupNorm ones/zeros). The encoder half is built only
-# so that the tree matches the JAX package's.
+# +/- 1/sqrt(fan_in), GroupNorm ones/zeros).
 # ---------------------------------------------------------------------------
 
 def init_vqvae_params(cfg: VQVAEConfig, seed: int = 0, device="cuda",

@@ -16,7 +16,9 @@ semantics, bit for bit where integer arithmetic decides:
 The plain version finds both thresholds by 32-step bisection, as the TPU
 kernel does. The kernel (``sdvar_tpu_torch/csrc/sampler.cu``, CUDA C++ for
 sm_90a, loaded with ctypes) finds the same values with one block a row,
-the row in shared memory: 2048 bins linear in x over the participants'
+the row in shared memory (a row wider than ``SMEM_V`` stays in device
+memory, and its nucleus skips the columns below the top-k threshold
+instead of setting the kept ones aside): 2048 bins linear in x over the participants'
 range (``LINEAR_BINS``: 32 coarse bins, top-k's counted in per-thread byte
 counters, the nucleus's masses by integer atomics; then the chosen coarse
 bin's 64 fine bins), a warp scan for the bin where the weight from the top
@@ -24,7 +26,7 @@ reaches the target, then an exact ranking of that bin's few elements by
 their ordered keys (a crowded bin: ``RADIX_DIGITS`` radix passes). For
 top-k the weight is 1 and the target k, so the mask is bit-equal to the
 plain version's. The nucleus runs over the kept columns, set aside: the
-weight of a column is exp(x - max) as an integer with ``MASS_BITS``
+weight of a column is exp(x - max) as an integer with :func:`mass_bits`
 fractional bits and the target ceil(top_p * sum); the sums are exact
 integers in no order (the same bits every run), where the plain version
 sums in f32, so a row whose mass lands within an f32 step of the threshold
@@ -50,7 +52,8 @@ LINEAR_BINS = (32, 64)       # the select's coarse bins and fine bins in each
 CANDIDATES = 128             # a fine bin of at most this many is ranked directly
 RADIX_DIGITS = (8, 8, 8, 8)  # a crowded bin's radix passes, MSB first
 MASS_BITS = 50               # fixed-point fraction bits of the nucleus masses
-MAX_V = 8192                 # the widest row the kernel holds in shared memory
+SMEM_V = 8192                # the widest row the kernel holds in shared memory
+COUNT_CHUNKS = 63            # chunks a thread counts between byte-counter sums
 MAX_THREADS = 256
 
 _MASK32 = 0xFFFFFFFF
@@ -137,28 +140,42 @@ def sample_plain(logits: torch.Tensor, row_seeds: Optional[torch.Tensor],
     return ids
 
 
+def sampler_takes(V: int) -> bool:
+    """Whether the kernel takes rows of width V: a multiple of 4 (the row
+    is read in 16-byte chunks), every width the TPU kernel takes (a
+    multiple of 128) among them. ``ops.partition.sharded_fused_sample``
+    routes other widths to :func:`sample_plain`."""
+    return V >= 4 and V % 4 == 0
+
+
+def mass_bits(V: int) -> int:
+    """The nucleus masses' fixed-point fraction bits at width V:
+    ``MASS_BITS``, fewer where V masses of at most 2^bits could reach 2^63
+    (V > 8192)."""
+    return min(MASS_BITS, 63 - (V - 1).bit_length())
+
+
 @functools.lru_cache(maxsize=1024)
 def sampler_plan(M: int, V: int) -> dict:
     """The kernel's launch geometry: one block a row (``grid`` = M) of
     ``threads`` (a power of two, 32-256: one 16-byte chunk of the row a
-    thread up to 256 threads, further chunks threads apart, so a thread
-    holds at most 32 values, as top-k's byte counters need) and the
-    dynamic shared memory: the row and the columns top-k keeps (4V bytes
-    each; or top-k's byte counters, 32 rows of threads + 4, if more), the
-    fallback's radix
-    histogram (2^8 bins and one pad slot a thread, 8 bytes each), the
-    ranked candidates (key and weight) and the coarse bins' per-warp
-    weights. Raises on a row the kernel does not take: V > 8192 or
-    V % 4 != 0."""
-    if V < 4 or V > MAX_V or V % 4:
-        raise ValueError(f"sampler kernel: V={V} must be a multiple of 4 "
-                         f"from 4 to {MAX_V}")
+    thread up to 256 threads, further chunks threads apart; top-k's byte
+    counters are summed every ``COUNT_CHUNKS`` chunks) and the dynamic
+    shared memory: the row and the columns top-k keeps (4V bytes each, none
+    for a row wider than ``SMEM_V``; or top-k's byte counters, 32 rows of
+    threads + 4, if more), the fallback's radix histogram (2^8 bins and one
+    pad slot a thread, 8 bytes each), the ranked candidates (key and
+    weight) and the coarse bins' per-warp weights. Raises on a row the
+    kernel does not take: V % 4 != 0."""
+    if not sampler_takes(V):
+        raise ValueError(f"sampler kernel: V={V} must be a multiple of 4")
     if M < 1 or M > 2 ** 31 - 1:
         raise ValueError(f"sampler kernel: M={M} rows")
     vec = V // 4
     threads = min(MAX_THREADS, max(32, 1 << (vec - 1).bit_length()))
-    kept = max(4 * V, LINEAR_BINS[0] * (threads + 4))  # or top-k's counters
-    smem = (4 * V + kept + ((1 << RADIX_DIGITS[0]) + threads) * 8
+    row = 4 * V if V <= SMEM_V else 0
+    kept = max(row, LINEAR_BINS[0] * (threads + 4))  # or top-k's counters
+    smem = (row + kept + ((1 << RADIX_DIGITS[0]) + threads) * 8
             + CANDIDATES * (4 + 8) + threads // 32 * LINEAR_BINS[0] * 8)
     return {"grid": M, "threads": threads, "smem_bytes": smem}
 
@@ -239,3 +256,4 @@ def sample_kernel(logits: torch.Tensor, row_seeds: Optional[torch.Tensor],
 
 
 sample_kernel.launches = 0
+sample_kernel.plain_rows = 0  # rows of widths the kernel does not take

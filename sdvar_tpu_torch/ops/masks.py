@@ -39,6 +39,14 @@ def block_causal_bias(patch_nums: Tuple[int, ...]) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def block_causal_prefix(patch_nums: Tuple[int, ...], ed: int) -> np.ndarray:
+    """The first ``ed`` tokens' (ed, ed) block of ``block_causal_bias``, a
+    contiguous array of its own (the progressive-training sequence; the
+    attention kernel takes a packed bias)."""
+    return np.ascontiguousarray(block_causal_bias(patch_nums)[:ed, :ed])
+
+
+@functools.lru_cache(maxsize=None)
 def sd_masking_bias(patch_nums: Tuple[int, ...]) -> np.ndarray:
     """(L, L) bias: causal-by-token, but within one's own scale only self-
     attention (reference attn_bias_for_sdmasking, models/var.py:557-569)."""

@@ -21,9 +21,13 @@ ranks. What runs per rank:
 
 The TPU-only rules of the JAX wrappers stay behind (merged heads per shard
 a multiple of 128 lanes, per-shard rows a multiple of 8): every shard runs
-its kernel. A shape that does not divide the mesh raises (``ValueError``)
-where the mesh is set up or the parameters are cut; the JAX package's
-fallback to the XLA composition under GSPMD has no counterpart.
+its kernel. A width that does not divide over "model" stays whole: each of
+the four split widths (heads, FFN hidden, AdaLN 6C, vocab) decides for
+itself (``model_split(n)``), and where one does not divide, every model
+rank holds that layer's weights whole and computes it unsplit, with the
+launches and collectives of the unsharded layer (where the JAX package
+lets GSPMD partition the XLA composition). The batch rows must divide
+over "data".
 
 The registry (``set_tp_mesh``) is read at call time by ``models/var.py``,
 ``engine/decode.py`` and the KV caches. A 1x1 mesh is a no-op: the
@@ -34,7 +38,11 @@ from __future__ import annotations
 
 import torch
 
-from sdvar_tpu_torch.ops.kernels.sampling import sample_kernel, sample_plain
+from sdvar_tpu_torch.ops.kernels.sampling import (
+    sample_kernel,
+    sample_plain,
+    sampler_takes,
+)
 from sdvar_tpu_torch.ops.kernels.scale_probe import scale_probe
 
 DATA, MODEL = "data", "model"
@@ -67,10 +75,14 @@ def tp_mesh_active() -> bool:
     return _active_mesh() is not None
 
 
-def model_split() -> int:
-    """The number of ranks that split the model (1 without a mesh)."""
+def model_split(n: int) -> int:
+    """The number of ranks that split a width ``n`` over "model": the
+    mesh's model count where n divides it, else 1 (the width stays whole on
+    every rank). 1 without a mesh."""
     m = _active_mesh()
-    return 1 if m is None else m.model
+    if m is None or n % m.model:
+        return 1
+    return m.model
 
 
 def data_rows(n: int, what: str = "batch") -> slice:
@@ -104,15 +116,36 @@ def gather_data(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return t if m is None else m.all_gather(t, DATA, dim)
 
 
+def gather_vocab(t: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Whole rows of logits over a ``vocab``-wide head: all-gathered over
+    "model" where the head's columns split (``model_split(vocab)``), else
+    t itself (a whole head on every rank)."""
+    if model_split(vocab) == 1:
+        return t
+    return gather_model(t, dim=-1)
+
+
 def sharded_fused_sample(logits: torch.Tensor, seeds: torch.Tensor,
-                         top_k: int = 0, top_p: float = 0.0) -> torch.Tensor:
+                         top_k: int, top_p: float, vocab: int) -> torch.Tensor:
     """(M, V/model) f32 logits of this rank's rows, split over "model" by
-    vocab column, and their (M,) int32 row seeds -> (M,) int32 ids: the
-    vocab is all-gathered over "model", then the sampler kernel (its plain
-    version for CPU tensors) runs on the whole rows."""
-    full = gather_model(logits, dim=-1)
-    fn = sample_plain if full.device.type == "cpu" else sample_kernel
-    return fn(full, seeds, top_k, top_p)
+    vocab column (whole rows where a ``vocab``-wide head does not divide),
+    and their (M,) int32 row seeds -> (M,) int32 ids: the vocab is
+    all-gathered over "model", then the rows are sampled whole.
+
+    This is the one place that picks the sampler. CPU tensors take its
+    plain version; CUDA rows take the kernel at every width it takes
+    (``sampler_takes``: a multiple of 4, so every width the TPU kernel
+    takes), else ``sample_plain`` on the card (the kernel's bit reference
+    on the same per-row seeds, so the stream stays one stream across
+    widths), as the JAX package takes its XLA path at widths its kernel
+    does not take. Those rows are counted in ``sample_kernel.plain_rows``."""
+    full = gather_vocab(logits, vocab)
+    if full.device.type == "cpu":
+        return sample_plain(full, seeds, top_k, top_p)
+    if not sampler_takes(full.shape[-1]):
+        sample_kernel.plain_rows += full.shape[0]
+        return sample_plain(full, seeds, top_k, top_p)
+    return sample_kernel(full, seeds, top_k, top_p)
 
 
 def sharded_scale_probe(x: torch.Tensor) -> torch.Tensor:

@@ -256,13 +256,14 @@ def linear_blc(x_blc: torch.Tensor, w, dtype) -> torch.Tensor:
     return torch.matmul(x_blc.to(dtype), resolve_weight(w, dtype))
 
 
-def linear_rows(x_blc: torch.Tensor, w, dtype) -> torch.Tensor:
+def linear_rows(x_blc: torch.Tensor, w, dtype, split: int) -> torch.Tensor:
     """``linear_blc`` for a weight whose input rows split over "model"
     (proj, fc2): x holds this rank's columns. Each rank's partial product
     is summed over the model ranks: a ``W8A8Linear`` sums its exact int32
     partials before the scale epilogue (the unsharded bits), any other
-    weight its partials in ``dtype``. Without a model split, ``linear_blc``."""
-    if model_split() == 1:
+    weight its partials in ``dtype``. ``split``: the ranks that split the
+    rows (``model_split(width)``); with 1, ``linear_blc``."""
+    if split == 1:
         return linear_blc(x_blc, w, dtype)
     if isinstance(w, W8A8Linear):
         xq, xs = quantize_activation(x_blc, sharded=True)
@@ -313,13 +314,10 @@ class QuantizedKVCache:
 
 def local_kv_shape(cfg: VARConfig, batch: int) -> Tuple[int, int]:
     """(rows, merged head width) of this rank's KV cache for a batch of
-    ``batch`` rows: rows over "data", heads over "model" (the whole cache
-    without a mesh)."""
+    ``batch`` rows: rows over "data", heads over "model" where they divide
+    (the whole cache without a mesh)."""
     rows = data_rows(batch, "KV cache batch")
-    tp = model_split()
-    if cfg.num_heads % tp:
-        raise ValueError(f"heads {cfg.num_heads} do not divide over "
-                         f"model={tp}")
+    tp = model_split(cfg.num_heads)  # 1: the heads stay whole on each rank
     return rows.stop - rows.start, cfg.num_heads // tp * cfg.head_dim
 
 

@@ -1,5 +1,8 @@
 """Top-k / top-p sampling through the fused sampler, CFG batch helpers and
-per-request seed streams (``request_seeds``, ``fold_seeds``, ``row_seeds``).
+per-request seed streams (``request_seeds``, ``fold_seeds``, ``row_seeds``);
+the JAX package's masking helpers (``mask_top_k``, ``mask_top_p``), its
+top-k-domain sampler and ``gumbel_softmax`` (the ``more_smooth`` decode),
+with their Gumbel noise given by the caller.
 
 Sampling always goes through the fused sampler (CUDA kernel on the card,
 its plain version on the CPU) with one seed per row. A row's seed depends
@@ -67,17 +70,72 @@ def row_seeds(req_seeds: torch.Tensor, si: int, l: int) -> torch.Tensor:
 
 
 def sample_with_top_k_top_p(logits_BlV: torch.Tensor, seeds: torch.Tensor,
-                            top_k: int = 0, top_p: float = 0.0) -> torch.Tensor:
+                            top_k: int = 0, top_p: float = 0.0, *,
+                            vocab: int) -> torch.Tensor:
     """Sample (B, l) int32 ids from (B, l, V) logits with top-k / top-p
     filtering and Gumbel-max; ``seeds`` holds one int32 seed per row
     (B*l,), see :func:`row_seeds`. Through the fused sampler
     (``ops.partition.sharded_fused_sample``: the CUDA kernel for CUDA
-    tensors, its plain version for CPU tensors); under a mesh the logits
-    are this rank's rows and vocab columns, gathered over "model" first."""
+    tensors at the widths it takes, its plain version otherwise); under a
+    mesh the logits are this rank's rows and, where the ``vocab``-wide
+    head splits over "model", its vocab columns, gathered first."""
     B, l, V = logits_BlV.shape
     ids = sharded_fused_sample(logits_BlV.float().reshape(B * l, V), seeds,
-                               top_k, top_p)
+                               top_k, top_p, vocab=vocab)
     return ids.reshape(B, l)
+
+
+def mask_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Keep the k largest logits of each row (ties with the k-th kept),
+    the others -inf."""
+    if top_k <= 0 or top_k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < kth, float("-inf"))
+
+
+def mask_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Nucleus filtering (the reference's semantics): sort ascending, drop
+    the entries whose ascending softmax cumsum is <= 1 - top_p, never the
+    largest."""
+    if top_p <= 0.0 or top_p >= 1.0:
+        return logits
+    srt, idx = torch.sort(logits, dim=-1)  # ascending
+    cum = torch.softmax(srt.float(), dim=-1).cumsum(dim=-1)
+    remove_sorted = cum <= 1.0 - top_p
+    remove_sorted[..., -1] = False
+    remove = torch.zeros_like(remove_sorted).scatter(-1, idx, remove_sorted)
+    return logits.masked_fill(remove, float("-inf"))
+
+
+def sample_top_k_domain(logits: torch.Tensor, top_k: int, top_p: float,
+                        noise: torch.Tensor) -> torch.Tensor:
+    """The JAX package's sort-based path with 0 < top_k < V: the k largest
+    logits (descending), a nucleus over them (keep position j while the
+    mass before it is < top_p; the argmax always), Gumbel-max with the
+    given (..., k) ``noise`` in that domain, gathered back to vocab ids
+    (int32)."""
+    vals, idxs = torch.topk(logits.float(), top_k, dim=-1)  # descending
+    if top_p > 0.0:
+        probs = torch.softmax(vals, dim=-1)
+        prior = probs.cumsum(dim=-1) - probs  # mass before position j
+        vals = vals.masked_fill(~(prior < top_p), float("-inf"))
+    j = (vals + noise).argmax(dim=-1, keepdim=True)
+    return idxs.gather(-1, j)[..., 0].to(torch.int32)
+
+
+def gumbel_softmax(logits: torch.Tensor, noise: torch.Tensor,
+                   tau: float = 1.0, hard: bool = False, dim: int = -1
+                   ) -> torch.Tensor:
+    """Gumbel-softmax with the given Gumbel ``noise`` (the shape of
+    logits): softmax((logits + noise) / tau); ``hard``: the one-hot of its
+    argmax, with the soft gradient (straight-through)."""
+    y_soft = torch.softmax((logits.float() + noise) / tau, dim=dim)
+    if not hard:
+        return y_soft
+    index = y_soft.argmax(dim=dim, keepdim=True)
+    y_hard = torch.zeros_like(y_soft).scatter(dim, index, 1.0)
+    return y_hard + y_soft.detach() - y_soft
 
 
 def greedy(logits_BlV: torch.Tensor) -> torch.Tensor:

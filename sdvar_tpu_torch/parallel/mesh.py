@@ -11,9 +11,13 @@ cache and of the batch, and the model calls the collectives it needs
 
 Parameters are split Megatron-style over "model": qkv and fc1 by output
 column (heads, FFN hidden), proj and fc2 by input row, AdaLN's 6C output
-and the vocab head by column. qkv's columns split head-aligned within each
-of q, k and v (``MODEL_QKV``), since the model views them as
-(B, L, 3, H, hd); ``scale_mul``, per head, goes with its heads. The KV
+and the vocab head by column. qkv's columns split head-aligned within
+each of q, k and v (``MODEL_QKV``), since the model views them as
+(B, L, 3, H, hd); ``scale_mul``, per head, goes with its heads. Each of
+the four widths splits only where it divides the model count; the
+weights of a width that does not stay whole on every rank
+(``var_param_specs(cfg, mesh)``), and the model computes that layer
+unsplit (``ops.partition.model_split``). The KV
 cache splits its batch rows over "data" and its merged heads over "model";
 the batch splits over "data" in contiguous slices.
 
@@ -136,36 +140,43 @@ def single_device_mesh() -> Mesh:
     return Mesh(1, 1, 0)
 
 
-def check_var_divisible(cfg: VARConfig, mesh: Mesh) -> None:
-    """Raise if a dimension the mesh splits over "model" does not divide."""
-    for what, n in (("heads", cfg.num_heads), ("FFN hidden", cfg.mlp_hidden),
-                    ("AdaLN 6C", 6 * cfg.embed_dim),
-                    ("vocab", cfg.vocab_size)):
-        if n % mesh.model:
-            raise ValueError(f"{what} {n} does not divide over model="
-                             f"{mesh.model}")
+def var_splits(cfg: VARConfig, model: int) -> Dict[str, bool]:
+    """Which of VAR's four split widths divide over ``model`` ranks (True:
+    split; False: held whole on every rank)."""
+    return {what: n % model == 0
+            for what, n in (("heads", cfg.num_heads),
+                            ("FFN hidden", cfg.mlp_hidden),
+                            ("AdaLN 6C", 6 * cfg.embed_dim),
+                            ("vocab", cfg.vocab_size))}
 
 
-def var_param_specs(cfg: VARConfig) -> dict:
-    """The spec tree of VAR's parameters (tensor parallel over "model")."""
+def var_param_specs(cfg: VARConfig, mesh: Mesh) -> dict:
+    """The spec tree of VAR's parameters (tensor parallel over "model") on
+    ``mesh``: the parameters of a width that does not divide its model
+    count are whole (``var_splits``)."""
+    split = var_splits(cfg, mesh.model)
+
+    def by(what, *spec):
+        return spec if split[what] else tuple(None for _ in spec)
+
     blocks = {
-        "qkv_w": (None, None, MODEL_QKV),
-        "q_bias": (None, MODEL),
-        "v_bias": (None, MODEL),
-        "proj_w": (None, MODEL, None),
+        "qkv_w": by("heads", None, None, MODEL_QKV),
+        "q_bias": by("heads", None, MODEL),
+        "v_bias": by("heads", None, MODEL),
+        "proj_w": by("heads", None, MODEL, None),
         "proj_b": (None, None),
-        "fc1_w": (None, None, MODEL),
-        "fc1_b": (None, MODEL),
-        "fc2_w": (None, MODEL, None),
+        "fc1_w": by("FFN hidden", None, None, MODEL),
+        "fc1_b": by("FFN hidden", None, MODEL),
+        "fc2_w": by("FFN hidden", None, MODEL, None),
         "fc2_b": (None, None),
     }
     if cfg.attn_l2_norm:
-        blocks["scale_mul"] = (None, MODEL)  # per head: with its heads
+        blocks["scale_mul"] = by("heads", None, MODEL)  # per head
     if cfg.shared_aln:
         blocks["ada_gss"] = (None, None, None, None)
     else:
-        blocks["ada_lin_w"] = (None, None, MODEL)
-        blocks["ada_lin_b"] = (None, MODEL)
+        blocks["ada_lin_w"] = by("AdaLN 6C", None, None, MODEL)
+        blocks["ada_lin_b"] = by("AdaLN 6C", None, MODEL)
     specs = {
         "word_embed": {"w": (None, None), "b": (None,)},
         "class_emb": (None, None),
@@ -174,10 +185,11 @@ def var_param_specs(cfg: VARConfig) -> dict:
         "lvl_embed": (None, None),
         "blocks": blocks,
         "head_nm": {"w": (None, None), "b": (None,)},
-        "head": {"w": (None, MODEL), "b": (MODEL,)},
+        "head": {"w": by("vocab", None, MODEL), "b": by("vocab", MODEL)},
     }
     if cfg.shared_aln:
-        specs["shared_ada_lin"] = {"w": (None, MODEL), "b": (MODEL,)}
+        specs["shared_ada_lin"] = {"w": by("AdaLN 6C", None, MODEL),
+                                   "b": by("AdaLN 6C", MODEL)}
     return specs
 
 

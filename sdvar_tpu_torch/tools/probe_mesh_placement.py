@@ -61,7 +61,7 @@ def run(depth: int = 30, device="cuda") -> dict:
         if tag == "mesh1x1":
             mesh = single_device_mesh()
             set_tp_mesh(mesh)
-            p = shard_tree(params, var_param_specs(var_cfg), mesh)
+            p = shard_tree(params, var_param_specs(var_cfg, mesh), mesh)
         try:
             decode(p)  # warm-up
             before = _launches()

@@ -11,6 +11,10 @@ JAX package's NamedTuples of numpy arrays (``jax.tree.map`` keeps the
 type); they are recognised by class name and fields, without importing the
 JAX package, and become the port's class of the same meaning. Any other
 tuple raises: the bridge never guesses what a tuple holds.
+
+``train_state_from_jax`` carries a JAX ``TrainState`` over (its params,
+the optax Adam or factored-RMS state found by its field names, and the
+step), so that the port's next step continues the JAX run.
 """
 
 from __future__ import annotations
@@ -104,3 +108,30 @@ def pixel_sites_from_jax(sites, device="cuda"):
         floats = {k: np.asarray(site[k], np.float32) for k in SITE_KEYS[1:]}
         out.append(site_from_arrays({"wq": wq, **floats}, dev))
     return tuple(out)
+
+
+def train_state_from_jax(state, device="cuda"):
+    """A JAX ``TrainState`` (``jax.tree.map(np.asarray, state)``: params,
+    the optax chain's states, step) -> the port's
+    ``train.trainer.TrainState``: the params, the optimizer state
+    (``mu``/``nu``/``count`` of ``ScaleByAdamState``, or ``v_row``/
+    ``v_col``/``v``/``count`` of the factored RMS's ``FactoredState``;
+    the clipping's empty state is skipped) and the step as an int."""
+    from sdvar_tpu_torch.train.trainer import TrainState
+
+    dev = resolve_device(device)
+    params = var_params_from_jax(state.params, dev)
+    parts = state.opt_state if isinstance(state.opt_state, tuple) else (
+        state.opt_state,)
+    inner = [p for p in parts if set(getattr(p, "_fields", ())) & {"mu", "v_row"}]
+    if len(inner) != 1:
+        raise TypeError("train state bridge: the optimizer state holds no "
+                        "single Adam or factored-RMS state, got "
+                        f"{[type(p).__name__ for p in parts]}")
+    st = inner[0]
+    names = ("mu", "nu") if "mu" in st._fields else ("v_row", "v_col", "v")
+    opt = {n: _convert(getattr(st, n), dev) for n in names}
+    opt["count"] = torch.tensor(int(np.asarray(st.count)), dtype=torch.int32,
+                                device=dev)
+    return TrainState(params=params, opt_state=opt,
+                      step=int(np.asarray(state.step)))

@@ -140,12 +140,13 @@ def test_sampler_kernel_on_tie_and_extreme_rows(cuda, top_k, top_p, M):
 
 
 @pytest.mark.parametrize("M", [2, 18, 300])
-@pytest.mark.parametrize("V", [64, 128, 1000, 2048, 8192])
+@pytest.mark.parametrize("V", [64, 128, 1000, 2048, 8192, 8196, 16384, 32768])
 @pytest.mark.parametrize("top_k,top_p", [(1, 0.0), (15, 0.0), (15, 0.5),
                                          (0, 0.9)])
 def test_sampler_kernel_at_other_widths(cuda, V, M, top_k, top_p):
     """Rows narrower and wider than the decode's (32 to 256 threads, one to
-    eight chunks a thread; the small stack's V=64 greedy rows). With top_p
+    eight chunks a thread; the small stack's V=64 greedy rows; rows past
+    8192 read in device memory, up to 32 chunks a thread). With top_p
     set, the 0.999-of-rows gate is taken over at least 1000 rows, and the
     launch on the first M rows alone gives the bits of those rows."""
     g = torch.Generator(device=cuda).manual_seed(V + M)
@@ -184,7 +185,7 @@ def test_sampler_kernel_replays_in_a_cuda_graph(cuda):
 
 def test_sampler_kernel_refuses_what_it_does_not_take(cuda):
     seeds = torch.zeros(4, dtype=torch.int32, device=cuda)
-    for V in (4098, 8196):
+    for V in (4098, 8194):
         with pytest.raises(ValueError, match="multiple of 4"):
             sample_kernel(torch.zeros(4, V, device=cuda), seeds, 15, 0.5)
     with pytest.raises(ValueError, match="float32"):
@@ -779,3 +780,110 @@ def test_w8a8_fused_kernel_replays_in_a_cuda_graph(cuda, s8):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("V", [8194, 8196, 16384, 32768])
+@pytest.mark.parametrize("top_p", [0.0, 0.96])
+def test_sampler_at_wide_and_refused_widths(cuda, V, top_p):
+    """``sample_with_top_k_top_p`` past the decode's vocab: the kernel
+    takes every multiple of 4 (rows past 8192 read in device memory), one
+    launch and no plain row, ids equal to ``sample_plain``'s (bit for bit
+    with top_p = 0; integer masses against f32 sums: 0.999 of the rows with
+    top_p); a width it refuses (8194) goes to ``sample_plain`` on the card,
+    bit-equal, no launch, the rows counted in ``sample_kernel.plain_rows``."""
+    from sdvar_tpu_torch.ops.sampling import sample_with_top_k_top_p
+
+    g = torch.Generator(device=cuda).manual_seed(V)
+    B, l = 4, 250
+    logits = torch.randn(B, l, V, device=cuda, generator=g) * 4
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B * l,), device=cuda,
+                          generator=g, dtype=torch.int32)
+    sample_kernel.launches = sample_kernel.plain_rows = 0
+    got = sample_with_top_k_top_p(logits, seeds, 900, top_p, vocab=V)
+    torch.cuda.synchronize()
+    taken = V % 4 == 0
+    assert (sample_kernel.launches, sample_kernel.plain_rows) == (
+        (1, 0) if taken else (0, B * l))
+    want = sample_plain(logits.reshape(B * l, V), seeds, 900, top_p)
+    agree = (got.reshape(-1) == want).float().mean().item()
+    assert agree == 1.0 if top_p == 0.0 or not taken else agree >= 0.999
+
+
+def _replay_equal(fn, inputs, fresh):
+    """One eager launch, then one captured in a CUDA graph; the captured
+    inputs are overwritten with ``fresh`` ones and the graph replayed: its
+    output must be the eager launch's on the fresh inputs, bit for bit."""
+    fn(*inputs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*inputs)
+    for dst, src in zip(inputs, fresh):
+        if isinstance(dst, torch.Tensor):
+            dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = fn(*fresh)
+    torch.cuda.synchronize()
+    return torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_entry_points_replay_in_a_cuda_graph(cuda, dtype):
+    """Rows 1, 2, 7 and 8 (the float and INT8-KV attention, the cache
+    attention and the fused cache write + attention) replay bit-equal in a
+    CUDA graph; the cache write's graph is replayed on a fresh cache."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, H, hd, Lq, Lk = 4, 3, 64, 100, 164
+
+    def make():
+        q = torch.randn(B, Lq, H, hd, device=cuda, generator=g).to(dtype)
+        k, v = (torch.randn(B, Lk, H, hd, device=cuda, generator=g).to(dtype)
+                for _ in range(2))
+        return q, k, v, _bias(cuda, g, Lq, Lk)
+
+    a, b = make(), make()
+    assert _replay_equal(lambda q, k, v, m: attention_kernel(q, k, v, m, 0.125),
+                         a, b)
+
+    def make8():
+        q = torch.randn(B, Lq, H, hd, device=cuda, generator=g).to(dtype) * 0.01
+        kv = [quantize_tokens(torch.randn(B, Lk, H * hd, device=cuda,
+                                          generator=g)) for _ in range(2)]
+        return (q, kv[0][0].view(B, Lk, H, hd), kv[1][0].view(B, Lk, H, hd),
+                kv[0][1], kv[1][1])
+
+    a, b = make8(), make8()
+    assert _replay_equal(lambda q, k, v, ks, vs: attention_kernel(
+        q, k, v, None, 0.125, kv_scales=(ks, vs)), a, b)
+
+    depth, li, bg = 2, 1, Lk - Lq
+
+    def make_cache():
+        q = torch.randn(B, Lq, H, hd, device=cuda, generator=g).to(dtype)
+        ck, cv, _ = _cache(cuda, g, dtype, depth, B, Lk + 8, H * hd)
+        kn, vn = (torch.randn(B, Lq, H, hd, device=cuda, generator=g).to(dtype)
+                  for _ in range(2))
+        return q, ck, cv, kn, vn
+
+    a, b = make_cache(), make_cache()
+    assert _replay_equal(lambda q, ck, cv, kn, vn: attention_cache_kernel(
+        q, ck, cv, li, Lk, None, 0.125), a, b)
+    a, b = make_cache(), make_cache()
+    b_copy = tuple(t.clone() for t in b)
+
+    def write(q, ck, cv, kn, vn):
+        return attention_cache_write_kernel(q, kn, vn, ck, cv, li, bg, Lk,
+                                            None, 0.125)
+
+    write(*a)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = write(*a)
+    for dst, src in zip(a, b):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = write(*b_copy)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(a[1], b_copy[1]) and torch.equal(a[2], b_copy[2])

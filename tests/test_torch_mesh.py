@@ -107,12 +107,12 @@ def _rank_main(out_dir: str) -> None:
         {n[len(k) + 1:]: a for n, a in inp.items() if n.startswith(k + "/")}),
         device="cpu") for k in ("target", "draft")}
     w8 = quantize_var_params(trees["target"], mode="w8a8")
-    specs = MS.var_param_specs(tv)
     res, meta = {}, {"rank": rank}
     for name, mcfg in MESHES.items():
         mesh = MS.create_mesh(mcfg)
         PT.set_tp_mesh(mesh)
         meta[f"{name}_coords"] = [mesh.data_index, mesh.model_index]
+        specs = MS.var_param_specs(tv, mesh)
         params = MS.shard_tree(trees["target"], specs, mesh)
         f_hat, ids = decode_all_scales(tv, tq, params, vae["quant"], LABELS, 0,
                                        SAMP, F32, return_ids=True,
@@ -143,7 +143,8 @@ def _rank_main(out_dir: str) -> None:
         rows, V = mesh.rows(SMP["M"]), SMP["V"] // mesh.model
         cols = slice(mesh.model_index * V, (mesh.model_index + 1) * V)
         res[f"{name}_smp"] = PT.gather_data(PT.sharded_fused_sample(
-            logits[rows, cols], seeds[rows], SMP["top_k"], SMP["top_p"])).numpy()
+            logits[rows, cols], seeds[rows], SMP["top_k"], SMP["top_p"],
+            SMP["V"])).numpy()
         res[f"{name}_probe"] = PT.sharded_scale_probe(
             torch.from_numpy(inp["probe_x"])).numpy()
 
@@ -468,7 +469,7 @@ def test_var_param_specs_cover_the_tree():
     for shared in (False, True):
         cfg = VARConfig(**VAR_KW, shared_aln=shared)
         params = init_var_params(cfg, seed=0, device="cpu")
-        specs = MS.var_param_specs(cfg)
+        specs = MS.var_param_specs(cfg, MS.single_device_mesh())
 
         def walk(p, s):
             assert set(p) == set(s)
@@ -496,7 +497,7 @@ def test_shard_tree_cuts_plain_and_quantized_leaves(mode):
     full = init_var_params(cfg, seed=1, device="cpu")
     if mode:
         full = quantize_var_params(full, mode=mode)
-    specs = MS.var_param_specs(cfg)
+    specs = MS.var_param_specs(cfg, _fake_rank(2, 0))
     shards = [MS.shard_tree(full, specs, _fake_rank(2, i)) for i in range(2)]
     C, hidden, V = cfg.embed_dim, cfg.mlp_hidden, cfg.vocab_size
     for name, cols in (("qkv_w", 3 * C // 2), ("fc1_w", hidden // 2)):
@@ -542,17 +543,31 @@ def test_qkv_split_is_head_aligned():
 
 
 def test_indivisible_shapes_raise():
+    """A spec that splits a width which does not divide the mesh (the
+    specs of a mesh where it does) raises in ``shard_tree``; the mesh's
+    own specs (``var_param_specs(cfg, mesh)``) keep that width's weights
+    whole and cut the others (``tests/test_torch_mesh_replicated.py``
+    decodes such a stack)."""
+    from sdvar_tpu_torch.models.var import init_var_params
+
     cfg = VARConfig(**dict(VAR_KW, depth=3))  # 3 heads
     mesh = _fake_rank(2, 0)
-    with pytest.raises(ValueError, match="heads 3"):
-        MS.check_var_divisible(cfg, mesh)
+    assert MS.var_splits(cfg, 2) == {"heads": False, "FFN hidden": True,
+                                     "AdaLN 6C": True, "vocab": True}
+    p = init_var_params(cfg, seed=0, device="cpu")
     with pytest.raises(ValueError, match=r"/blocks/.*does not divide over model=2"):
-        from sdvar_tpu_torch.models.var import init_var_params
-
-        MS.shard_tree(init_var_params(cfg, seed=0, device="cpu"),
-                      MS.var_param_specs(cfg), mesh)
-    with pytest.raises(ValueError, match="vocab 63"):
-        MS.check_var_divisible(VARConfig(**dict(VAR_KW, vocab_size=63)), mesh)
+        MS.shard_tree(p, MS.var_param_specs(cfg, _fake_rank(3, 0)), mesh)
+    cut = MS.shard_tree(p, MS.var_param_specs(cfg, mesh), mesh)
+    C = cfg.embed_dim
+    assert cut["blocks"]["qkv_w"].shape[-1] == 3 * C  # heads whole
+    assert cut["blocks"]["proj_w"].shape[1] == C
+    assert cut["blocks"]["fc1_w"].shape[-1] == cfg.mlp_hidden // 2
+    assert cut["head"]["w"].shape[-1] == cfg.vocab_size // 2
+    v63 = VARConfig(**dict(VAR_KW, vocab_size=63))
+    assert not MS.var_splits(v63, 2)["vocab"]
+    with pytest.raises(ValueError, match=r"/head/w: dimension 1 \(63\)"):
+        MS.shard_tree(init_var_params(v63, seed=0, device="cpu"),
+                      MS.var_param_specs(v63, _fake_rank(63, 0)), mesh)
 
 
 def test_local_kv_cache_and_batch_rows():

@@ -43,13 +43,13 @@ def registry():
 def test_registry(registry):
     PT.set_tp_mesh(None)
     assert PT.get_tp_mesh() is None and not PT.tp_mesh_active()
-    assert PT.model_split() == 1
+    assert PT.model_split(6) == 1
     assert PT.data_rows(6) == slice(0, 6)
     mesh = MS.single_device_mesh()
     PT.set_tp_mesh(mesh)
     assert PT.get_tp_mesh() is mesh and not PT.tp_mesh_active()
     PT.set_tp_mesh(MS.Mesh(data=2, model=1, rank=1))
-    assert PT.tp_mesh_active() and PT.model_split() == 1
+    assert PT.tp_mesh_active() and PT.model_split(6) == 1
     assert PT.data_rows(6) == slice(3, 6)
     with pytest.raises(ValueError, match="not a mesh"):
         PT.set_tp_mesh(object())

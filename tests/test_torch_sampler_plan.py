@@ -16,8 +16,10 @@ from sdvar_tpu_torch.ops.kernels.sampling import (
     LINEAR_BINS,
     MASS_BITS,
     RADIX_DIGITS,
+    SMEM_V,
     _bisect,
     gumbel_from_bits,
+    mass_bits,
     rowhash_bits,
     sample_kernel,
     sample_plain,
@@ -120,7 +122,7 @@ def emulate(x: np.ndarray, top_k: int, top_p: float, g: np.ndarray):
             xm = from_key(keys[r].max())
             with np.errstate(over="ignore"):  # -3e38 - 3e38 = -inf: e = 0
                 e = np.exp((x[r] - xm).astype(np.float32)).astype(np.float32)
-            w = np.rint(e.astype(np.float64) * 2.0 ** MASS_BITS).astype(np.int64)
+            w = np.rint(e.astype(np.float64) * 2.0 ** mass_bits(V)).astype(np.int64)
             thr = max(kth, select_key(keys[r], x[r], keys[r] >= kth, w, top_p=top_p))
         keep[r] = keys[r] >= thr
         score = np.where(keep[r], (x[r] + g[r]).astype(np.float32), np.float32(-1e30))
@@ -213,11 +215,32 @@ def test_emulated_nucleus_against_plain(top_k, top_p):
     assert rows.mean() >= 0.999, np.nonzero(~rows)
 
 
+@pytest.mark.parametrize("top_k,top_p", [(900, 0.96), (0, 0.9)])
+def test_emulated_nucleus_at_a_wide_row(top_k, top_p):
+    """Rows of 16384 (read in device memory: the nucleus runs over the
+    columns at or above the top-k threshold in place, with
+    mass_bits(16384) = 49 fraction bits) against the plain version."""
+    rng = np.random.default_rng(top_k + 11)
+    V = 16384
+    x = (rng.standard_normal((6, V)) * 4).astype(np.float32)
+    noise = rng.gumbel(size=x.shape).astype(np.float32)
+    assert mass_bits(V) == 49
+    keep, ids = emulate(x, top_k, top_p, noise)
+    ids_p, mask_p = sample_plain(torch.from_numpy(x), None, top_k, top_p,
+                                 noise=torch.from_numpy(noise), return_mask=True)
+    np.testing.assert_array_equal(keep, mask_p.numpy().astype(bool))
+    np.testing.assert_array_equal(ids, ids_p.numpy())
+
+
 def test_nucleus_masses_fit():
-    """A row of 8192 masses of at most 2^MASS_BITS sums to at most 2^63:
-    the kernel's unsigned 64-bit sums cannot overflow, and a warp's 32
-    masses summed in 21-bit pieces stay below 2^32 a piece."""
-    assert 8192 * 2 ** MASS_BITS <= 2 ** 63
+    """A row of 8192 masses of at most 2^MASS_BITS sums to at most 2^63,
+    and a row of V of at most 2^mass_bits(V) at every width: the kernel's
+    unsigned 64-bit sums cannot overflow, and a warp's 32 masses summed in
+    21-bit pieces stay below 2^32 a piece."""
+    assert 8192 * 2 ** MASS_BITS <= 2 ** 63 and mass_bits(8192) == MASS_BITS
+    for V in (4, 4096, 8192, 8196, 16384, 32768, 100000, 2 ** 20):
+        assert V * 2 ** mass_bits(V) <= 2 ** 63 < 2 * V * 2 ** mass_bits(V) \
+            or mass_bits(V) == MASS_BITS
     assert 32 * (2 ** 21 - 1) < 2 ** 32 and 32 * (2 ** (MASS_BITS - 42) + 1) < 2 ** 32
     assert sum(RADIX_DIGITS) == 32 and len(set(RADIX_DIGITS)) == 1
     assert LINEAR_BINS == (32, 64)  # five ballot bits, then 64 fine bins
@@ -242,16 +265,23 @@ def test_plan_at_the_ten_scales(rows_per_token):
         assert 5 * p["smem_bytes"] <= 228 * 1024 and p["smem_bytes"] <= 48 * 1024
 
 
-@pytest.mark.parametrize("V", [4, 64, 100, 1000, 2048, 4096, 6000, 8192])
+@pytest.mark.parametrize("V", [4, 64, 100, 1000, 2048, 4096, 6000, 8192,
+                               8196, 16384, 32768, 100000])
 def test_plan_covers_the_row(V):
+    """Up to 8192 a row sits in shared memory, at most 32 values a thread;
+    a wider row takes 256 threads and stays in device memory, its shared
+    memory that of a 256-thread row without the row."""
     p = sampler_plan(8, V)
     t = p["threads"]
     assert t & (t - 1) == 0 and 32 <= t <= 256
-    assert t * 32 >= V and (t == 32 or t * 2 < V)
+    assert (t * 32 >= V if V <= SMEM_V else t == 256) and (t == 32 or t * 2 < V)
     assert (1 << RADIX_DIGITS[0]) % t == 0 and p["smem_bytes"] <= 232448
+    if V > SMEM_V:
+        assert p["smem_bytes"] == sampler_plan(8, 4096)["smem_bytes"] - 2 * 4 * 4096 \
+            + 32 * (256 + 4) and p["smem_bytes"] <= 48 * 1024
 
 
-@pytest.mark.parametrize("V", [4098, 8196, 2, 0])
+@pytest.mark.parametrize("V", [4098, 8194, 2, 0])
 def test_plan_refuses_rows_it_does_not_take(V):
     with pytest.raises(ValueError, match="multiple of 4"):
         sampler_plan(4, V)
