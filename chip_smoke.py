@@ -27,7 +27,12 @@ training shape with the gradient through it, a small ``train_step``
 against the CPU, VAR-d16 256px at global batch 32 through
 ``run_training`` and timed ``train_step``s (remat, a progressive stage,
 gradient accumulation, the bf16 tokenizer, the checkpoint read back),
-``train_loop --smoke`` as a subprocess, and four ranks sharing the card
+``train_loop --smoke`` as a subprocess, one step's spans; VAR-d16 at
+global batch 32 through ``run_training`` on a 2x1 and a 1x2 mesh of two
+ranks sharing the card (gloo), against the single card, with each mesh's
+checkpoint loaded on one card, and a small f32 stack on both meshes; the
+VQVAE trainer at 256px; the native data loader's build and one
+``run_training`` iteration through it; and four ranks sharing the card
 with a stack whose heads do not divide the mesh. It checks the outputs and
 the kernel launch counts of each path, holds small stacks on the card against
 the CPU plain path, times the three pixel decoders and the kernels (the
@@ -48,6 +53,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -152,11 +158,17 @@ from sdvar_tpu_torch.ops.quantization import (
 )
 from sdvar_tpu_torch.parallel import distributed as DIST
 from sdvar_tpu_torch.parallel.launch import launch
-from sdvar_tpu_torch.parallel.mesh import create_mesh, shard_tree, var_param_specs
+from sdvar_tpu_torch.parallel.mesh import (
+    create_mesh,
+    shard_tree,
+    unshard_tree,
+    var_param_specs,
+)
 from sdvar_tpu_torch.sample_fid import balanced_labels, sample_batches
 from sdvar_tpu_torch.train import checkpoint as CK
 from sdvar_tpu_torch.train import train_loop as TL
 from sdvar_tpu_torch.train import trainer as TR
+from sdvar_tpu_torch.train import vae_trainer as VT
 from sdvar_tpu_torch.train.data import SyntheticImageNet, batch_arrays
 from sdvar_tpu_torch.tools import (
     bench_serving,
@@ -165,6 +177,12 @@ from sdvar_tpu_torch.tools import (
 )
 from sdvar_tpu_torch.utils.device import full_f32
 from sdvar_tpu_torch.utils.fid import create_npz_from_arrays
+from sdvar_tpu_torch.utils.profiling import (
+    TRACE_FILE,
+    SpanTimer,
+    memory_stats,
+    trace,
+)
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
 # int8 tensor-core OP/s, f32 FLOP/s outside the tensor cores; and the int32
@@ -2817,9 +2835,10 @@ def _mesh_run_small(rep, arrs):
 
 def _mesh_run_d30(rep, arrs, tag, mcfg):
     """VAR-d30 B=16 on a mesh (``_mesh_var``'s weights), bf16 then W8A8 +
-    INT8 KV: three timed runs of one decode after a warm-up, every run
-    printed and giving the same ids; counts set to 0 just before the first
-    and read just after it (per rank)."""
+    INT8 KV: one timed run of one decode after a warm-up that must give
+    the same ids (one timed run, not three, to keep the whole script
+    inside its time budget); counts set to 0 just before the timed
+    run and read just after it (per rank)."""
     var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
     samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
     quant = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)["quant"]
@@ -2832,27 +2851,23 @@ def _mesh_run_d30(rep, arrs, tag, mcfg):
         del full
         torch.cuda.empty_cache()
         kv = "bf16" if mode == "bf16" else "int8"
-        _mesh_decode_ids(var_cfg, vae_cfg, params, quant, samp, kv)  # warm-up
+        warm = _mesh_decode_ids(var_cfg, vae_cfg, params, quant, samp, kv)
         # act-quant: qkv and fc1 once a layer, proj and fc2 twice when the
         # model is split (the scale-only pass, then the quantizing pass
         # with the row's all-reduced scale)
         want = (_want(attention=S * DEPTH, sampler=S) if mode == "bf16" else
                 _want(attention_int8=S * DEPTH, sampler=S, int8_matmul=S,
                       act_quantize=(4 if tp == 1 else 6) * S * DEPTH))
-        lat = []  # three timed runs of the same decode; the first is counted
-        for i in range(3):
-            torch.cuda.synchronize()
-            if i == 0:
-                _reset_counts()
-            t0 = time.time()
-            got = _mesh_decode_ids(var_cfg, vae_cfg, params, quant, samp, kv)
-            torch.cuda.synchronize()
-            lat.append((time.time() - t0) * 1e3)
-            if i == 0:
-                launches, ids = _read_counts(), got
-            elif not torch.equal(got, ids):
-                raise AssertionError(f"[mesh] d30 {tag} {mode}: the same "
-                                     f"decode gave other ids in run {i + 1}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.time()
+        ids = _mesh_decode_ids(var_cfg, vae_cfg, params, quant, samp, kv)
+        torch.cuda.synchronize()
+        lat = [(time.time() - t0) * 1e3]
+        launches = _read_counts()
+        if not torch.equal(warm, ids):
+            raise AssertionError(f"[mesh] d30 {tag} {mode}: the same decode "
+                                 f"gave other ids than its warm-up")
         key = f"d30 {tag} {mode}"
         rep[key] = {"launches": launches, "latent_ms": lat,
                     "rows_per_rank": B // mcfg.data,
@@ -3291,6 +3306,37 @@ def phase_train(name):
             raise AssertionError(f"[train d16] launches per step {_read_counts()}")
     finite = all(math.isfinite(x) for x in gnorms) and _finite_tree(state.params)
     falls = losses[-1] < losses[0]
+    timer = SpanTimer(DEV)  # one more step, its spans on the card's events
+    t0 = time.perf_counter()
+    state, m = step(state, timer=timer)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    span_ms = (time.perf_counter() - t0) * 1e3
+    spans = timer.report()
+    mem = memory_stats(DEV)
+    log(f"[train d16] spans of one step ({span_ms:.1f} ms, events on the "
+        f"card): {_spans_line(spans)} ms; sum "
+        f"{sum(v['mean_ms'] for v in spans.values()):.1f} ms; allocator "
+        f"{mem['bytes_in_use'] / 2 ** 30:.2f} GiB in use, peak "
+        f"{mem['peak_bytes_in_use'] / 2 ** 30:.2f} of "
+        f"{mem['bytes_limit'] / 2 ** 30:.2f} GiB")
+    with tempfile.TemporaryDirectory() as d:  # one step under the profiler
+        t0 = time.perf_counter()
+        with trace(d) as prof:
+            state, m = step(state)
+            float(m["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        with open(os.path.join(d, TRACE_FILE)) as f:
+            kernels = [e for e in json.load(f)["traceEvents"]
+                       if str(e.get("cat", "")).lower() == "kernel"]
+    window = ((max(e["ts"] + e["dur"] for e in kernels)
+               - min(e["ts"] for e in kernels)) / 1e3 if kernels else wall)
+    log(f"[train d16] one step under utils.profiling.trace (torch.profiler, "
+        f"a Chrome trace; {wall:.1f} ms profiled): {len(kernels)} kernel "
+        f"events, {busy:.1f} ms of device time in a {window:.1f} ms window "
+        f"from the first kernel to the last, busy share {busy / window:.3f}")
     t0 = time.perf_counter()
     for _ in range(3):
         ids = TR.tokenize(var_cfg, vae_cfg, vae, img)[1]
@@ -3340,7 +3386,10 @@ def phase_train(name):
     torch.cuda.empty_cache()
     return {"launches_per_step": launches, "remat_launches_per_step": runs["remat"],
             "step_ms": best, "img_per_s": TRAIN_B / best * 1e3,
-            "tokenize_ms": tok_ms}
+            "tokenize_ms": tok_ms,
+            "spans_ms": {k: v["mean_ms"] for k, v in spans.items()},
+            "profiled": {"kernels": len(kernels), "device_ms": busy,
+                         "window_ms": window, "wall_ms": wall}}
 
 
 def phase_train_smoke():
@@ -3521,6 +3570,444 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+# ---------------------------------------------------------------------------
+# the twelfth slice: training on a mesh, the VQVAE trainer, the spans, the
+# native loader
+# ---------------------------------------------------------------------------
+
+TRAIN_MESHES = {"2x1": MeshConfig(data=2, model=1),
+                "1x2": MeshConfig(data=1, model=2)}
+TRAIN_MESH_TIMEOUT = 900.0
+TRAIN_SEED = 2  # the generator of the one batch's training draws
+TRAIN_LR, TRAIN_WD = 1e-4, 0.05
+# The d16 mesh's gates against one card, relative: step 1's loss and grad
+# norm, and step 3's loss (after two AdamW updates). Step 1's read 0 and
+# 1.96e-07 on an H100 (NVIDIA H100 80GB HBM3, 700 W); 1e-4 leaves room for
+# the bf16 partial products the ranks sum in another order. A replicated
+# leaf's gradient counted twice moves the grad norm; a gradient of the
+# wrong direction moves step 3's loss.
+TRAIN_MESH_RTOL = 1e-4
+
+
+def _train_batch():
+    """The one batch of the timed steps (``phase_train``'s): 32 synthetic
+    256px images."""
+    ds = SyntheticImageNet(reso=256, length=TRAIN_B, seed=5)
+    img_np, lab_np = batch_arrays(ds, list(range(TRAIN_B)))
+    dev = torch.device(DEV)
+    return torch.from_numpy(img_np).to(dev), torch.from_numpy(lab_np).to(dev)
+
+
+def _fresh_d16(mesh=None):
+    """The d16 train state ``run_training`` starts from (seed 0), whole or
+    this rank's shard of it."""
+    tc = TrainConfig(depth=TRAIN_DEPTH, global_batch_size=TRAIN_B, epochs=1)
+    vae_cfg, var_cfg, vae, state = TL.build_everything(tc, seed=0, device=DEV,
+                                                       mesh=mesh)
+    return tc, vae_cfg, var_cfg, vae, state
+
+
+def _digests(tree) -> dict:
+    """sha256 of each leaf's bytes, by path."""
+    import hashlib
+
+    return {path: hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                                 .tobytes()).hexdigest()
+            for path, t in TR.tree_leaves(tree)}
+
+
+def _free_card(tag: str) -> None:
+    """Drop this process's cached blocks (after a collection: a reference
+    cycle can hold a tensor) and log the card's free memory and this
+    process's share."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[memory] {tag}: the card {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} "
+        f"GiB free; this process {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved")
+
+
+def _spans_line(rep) -> str:
+    return ", ".join(f"{k} {v['mean_ms']:.1f}" for k, v in rep.items())
+
+
+def _train_mesh_run(tag, mcfg, out_dir, ref):
+    """One rank of one mesh: ``run_training`` for 3 iterations (eval and
+    the checkpoint where max_iters stops it), the gathered parameters'
+    digests; then the one batch from the fresh state: 3 steps with the
+    reference's draws, the first held against the single-card step, the
+    last 2 timed with their spans; the launches of every step; the
+    digests of the leaves this rank holds whole."""
+    rank = DIST.get_rank()
+    tc = TrainConfig(depth=TRAIN_DEPTH, global_batch_size=TRAIN_B, epochs=1)
+    _free_card(f"train mesh {tag} rank {rank}, before")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state, hist = TL.run_training(tc, out_dir=os.path.join(out_dir, tag),
+                                  max_iters=3, batch_override=TRAIN_B,
+                                  mesh_cfg=mcfg, device=DEV)
+    wall = time.time() - t0
+    var_cfg = VARConfig(depth=TRAIN_DEPTH)
+    mesh = create_mesh(mcfg)
+    whole = unshard_tree(state.params, var_param_specs(var_cfg, mesh), mesh)
+    ckpt_digests = _digests(whole) if rank == 0 else {}
+    del whole, state
+    run_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _free_card(f"train mesh {tag} rank {rank}, after run_training (its peak "
+               f"{run_peak:.2f} GiB)")
+    set_tp_mesh(mesh)
+    try:
+        tc, vae_cfg, var_cfg, vae, state = _fresh_d16(mesh)
+        img, label = _train_batch()
+        rows = mesh.rows(TRAIN_B)
+        gen = torch.Generator(device=torch.device(DEV)).manual_seed(TRAIN_SEED)
+        timer = SpanTimer(DEV)
+        losses, gnorms, ms, counts = [], [], [], []
+        for i in range(3):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = TR.train_step(var_cfg, vae_cfg, state, vae, img[rows],
+                                     label[rows], TRAIN_LR, TRAIN_WD, gen,
+                                     label_smooth=tc.label_smooth,
+                                     timer=timer if i else None)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            gnorms.append(float(m["grad_norm"]))
+            counts.append(_read_counts())
+        specs = var_param_specs(var_cfg, mesh)
+        replicated = _digests({
+            path: t for path, t in TR.tree_leaves(state.params)
+            if not TR.split_axes(_spec_at(specs, path), mesh)})
+        spans = timer.report()
+    finally:
+        set_tp_mesh(None)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    best = min(ms[1:])
+    d_loss = abs(losses[0] - ref["losses"][0]) / abs(ref["losses"][0])
+    d_norm = abs(gnorms[0] - ref["grad_norms"][0]) / abs(ref["grad_norms"][0])
+    d_last = abs(losses[-1] - ref["losses"][-1]) / abs(ref["losses"][-1])
+    launches_ok = all(c == _want(attention=TRAIN_DEPTH) for c in counts)
+    falls = losses[-1] < losses[0]
+    ok = (max(d_loss, d_norm, d_last) <= TRAIN_MESH_RTOL and launches_ok
+          and falls and all(math.isfinite(x) for x in losses + gnorms))
+    run_losses = [h["loss"] for h in hist]
+    log(f"[train mesh {tag}] rank {rank}: run_training 3 iterations + eval + "
+        f"checkpoint in {wall:.1f} s, losses "
+        f"{', '.join(f'{x:.4f}' for x in run_losses)}; the one batch, "
+        f"{TRAIN_B // mcfg.data} rows a rank: step 1 loss {losses[0]:.5f} "
+        f"(one card {ref['losses'][0]:.5f}, rel. d {d_loss:.2e}), grad norm "
+        f"{gnorms[0]:.6f} (one card {ref['grad_norms'][0]:.6f}, rel. d "
+        f"{d_norm:.2e}), step 3 loss {losses[-1]:.6f} (one card "
+        f"{ref['losses'][-1]:.6f}, rel. d {d_last:.2e}), limit "
+        f"{TRAIN_MESH_RTOL:g} each; grad norms of steps 2-3 "
+        f"{', '.join(f'{x:.6f}' for x in gnorms[1:])} (one card "
+        f"{', '.join(f'{x:.6f}' for x in ref['grad_norms'][1:])}, printed); "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)} (falling {falls}); steps "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms (best of the last 2 "
+        f"{best:.1f} ms, {TRAIN_B / best * 1e3:.2f} img/s); peak memory "
+        f"{peak:.2f} GiB; attention launches a step "
+        f"{[c['attention'] for c in counts]} (want {TRAIN_DEPTH}, no other "
+        f"kernel) {'ok' if ok else 'FAIL'}")
+    log(f"[train mesh {tag}] rank {rank}: spans, mean ms a step: "
+        f"{_spans_line(spans)}")
+    del state, vae, img
+    _free_card(f"train mesh {tag} rank {rank}, after")
+    return {"ok": ok, "run_losses": run_losses, "run_s": wall,
+            "step1_loss": losses[0], "step1_grad_norm": gnorms[0],
+            "rel_d": {"step1_loss": d_loss, "step1_grad_norm": d_norm,
+                      "step3_loss": d_last},
+            "losses": losses, "grad_norms": gnorms, "ms": ms, "best_ms": best,
+            "img_per_s": TRAIN_B / best * 1e3, "peak_gib": peak,
+            "launches_per_step": [c["attention"] for c in counts],
+            "spans_ms": {k: v["mean_ms"] for k, v in spans.items()},
+            "replicated_digests": replicated, "ckpt_digests": ckpt_digests}
+
+
+def _spec_at(specs, path: str):
+    """The spec of the leaf at a ``tree_leaves`` path."""
+    for k in path.split("/"):
+        specs = specs[k]
+    return specs
+
+
+def _train_mesh_small():
+    """The small f32 stack (``_train_small``) on each mesh against the
+    single-device ``train_step`` on this card with the same weights (the
+    rank's own reference), ``tests/test_torch_train_mesh.py``'s bar: loss
+    and grad norm within rtol/atol 1e-4, Adam's gathered mu and nu after
+    the step (0.1 g and 0.05 g^2 of the clipped gradient) within 1e-4 of
+    each leaf's size, the gathered parameters within 2e-4. One AdamW step
+    at lr 1e-4 moves a parameter by at most about 1e-4, so the moments
+    are what hold the backward and the data mean."""
+    vc, qc, p, q, img, label = _train_small()
+    vae, img, label = _to(q, DEV), img.to(DEV), label.to(DEV)
+
+    def step(state, rows):
+        return TR.train_step(vc, qc, state, vae, img[rows], label[rows], 1e-4,
+                             0.05, None, label_smooth=0.1, dtype=torch.float32)
+
+    ref, m = step(TR.init_train_state(_to(p, DEV)), slice(None))
+    ref_loss, ref_norm = float(m["loss"]), float(m["grad_norm"])
+    out = {}
+    for tag, mcfg in TRAIN_MESHES.items():
+        mesh = create_mesh(mcfg)
+        set_tp_mesh(mesh)
+        try:
+            st = TR.shard_train_state(TR.init_train_state(_to(p, DEV)), vc, mesh)
+            st, m = step(st, mesh.rows(img.shape[0]))
+            specs = var_param_specs(vc, mesh)
+            whole = {k: unshard_tree(t, specs, mesh) for k, t in (
+                ("params", st.params), ("mu", st.opt_state["mu"]),
+                ("nu", st.opt_state["nu"]))}
+        finally:
+            set_tp_mesh(None)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        err = max(((a - b).abs() - 2e-4 * b.abs()).max().item()
+                  for (_, a), (_, b) in zip(TR.tree_leaves(whole["params"]),
+                                            TR.tree_leaves(ref.params)))
+        moments = {k: float(np.max([_grad_err(a, b) for (_, a), (_, b) in zip(
+            TR.tree_leaves(whole[k]), TR.tree_leaves(ref.opt_state[k]))]))
+            for k in ("mu", "nu")}  # np.max: a NaN leaf fails the gate
+        ok = (abs(loss - ref_loss) <= 1e-4 + 1e-4 * abs(ref_loss)
+              and abs(norm - ref_norm) <= 1e-4 + 1e-4 * abs(ref_norm)
+              and err <= 2e-4 and max(moments.values()) <= 1e-4)
+        out[tag] = {"ok": ok, "loss": loss, "ref_loss": ref_loss,
+                    "grad_norm": norm, "ref_grad_norm": ref_norm,
+                    "param_excess": err, "mu_err": moments["mu"],
+                    "nu_err": moments["nu"]}
+        log(f"[train mesh small {tag}] rank {DIST.get_rank()}: f32 train_step "
+            f"on the mesh, loss {loss:.6f} against {ref_loss:.6f} on one card, "
+            f"grad norm {norm:.6f} against {ref_norm:.6f} (rtol/atol 1e-4); "
+            f"mu and nu max|d| / max|ref| a leaf {moments['mu']:.2e}, "
+            f"{moments['nu']:.2e} (limit 1e-4); parameters: max(|d| - 2e-4 "
+            f"|ref|) {err:.2e} (limit 2e-4) {'ok' if ok else 'FAIL'}")
+    return out
+
+
+def train_mesh_rank_main(out_dir: str) -> int:
+    """One of two ranks on cuda:0 (gloo) of ``phase_train_mesh``."""
+    DIST.initialize()
+    torch.cuda.set_device(DIST.rank_device())
+    rank = DIST.get_rank()
+    with open(os.path.join(out_dir, "ref.json")) as f:
+        ref = json.load(f)
+    rep = {"rank": rank}
+    for tag, mcfg in TRAIN_MESHES.items():
+        rep[tag] = _train_mesh_run(tag, mcfg, out_dir, ref)
+    rep["small"] = _train_mesh_small()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    DIST.shutdown()
+    return 0 if all(rep[t]["ok"] for t in TRAIN_MESHES) and all(
+        v["ok"] for v in rep["small"].values()) else 1
+
+
+def phase_train_mesh(name):
+    """VAR-d16 at full width, 256px, global batch 32, bf16 forward, f32
+    tokenize, AdamW, on a 2x1 (data) and a 1x2 (model: heads, FFN hidden,
+    6C and vocab split) mesh of two ranks that share the card through gloo
+    (``parallel.launch``; NCCL refuses two ranks on one card). Here,
+    before: the single-card steps 1-3 of the fresh state on the one batch
+    and its draws. The ranks: ``run_training(mesh_cfg=...)`` for 3
+    iterations, then the one batch (``_train_mesh_run``) and the small
+    f32 stack. After: the gates, and each mesh's checkpoint loaded on one
+    card, bit-equal to the gathered parameters. Returns the ranks'
+    reports."""
+    tc, vae_cfg, var_cfg, vae, state = _fresh_d16()
+    img, label = _train_batch()
+    gen = torch.Generator(device=torch.device(DEV)).manual_seed(TRAIN_SEED)
+    ref = {"losses": [], "grad_norms": []}
+    for _ in range(3):
+        state, m = TR.train_step(var_cfg, vae_cfg, state, vae, img, label,
+                                 TRAIN_LR, TRAIN_WD, gen,
+                                 label_smooth=tc.label_smooth)
+        ref["losses"].append(float(m["loss"]))
+        ref["grad_norms"].append(float(m["grad_norm"]))
+    del state, vae, img, m
+    _free_card("train mesh parent, before the ranks")
+    log(f"[train mesh] one card, the fresh d16 state's 3 steps on the one "
+        f"batch: losses {', '.join(f'{x:.6f}' for x in ref['losses'])}, grad "
+        f"norms {', '.join(f'{x:.6f}' for x in ref['grad_norms'])}")
+    with tempfile.TemporaryDirectory() as out:
+        with open(os.path.join(out, "ref.json"), "w") as f:
+            json.dump(ref, f)
+        t0 = time.time()
+        logs = launch([sys.executable, os.path.abspath(__file__),
+                       "--train-mesh-rank", out], MESH_WORLD, TRAIN_MESH_TIMEOUT,
+                      env=dict(os.environ,
+                               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+        wall = time.time() - t0
+        for r in range(MESH_WORLD):
+            for line in logs[r].splitlines():
+                if line.startswith(("[train mesh", "[memory]")):
+                    log(line)
+        reps = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+        log(f"[train mesh] {MESH_WORLD} ranks on cuda:0 (gloo through host "
+            f"memory; NCCL across cards has never run) in {wall:.1f} s, each "
+            f"exited 0")
+        template = _fresh_d16()[4]
+        for tag in TRAIN_MESHES:
+            a, b = (rep[tag]["replicated_digests"] for rep in reps)
+            same = a == b and len(a) > 0
+            ranks_losses = [rep[tag]["losses"] for rep in reps]
+            log(f"[train mesh {tag}] the {len(a)} leaves each rank holds whole "
+                f"bit-equal across the ranks after 3 steps: {same}; both "
+                f"ranks' losses equal: {ranks_losses[0] == ranks_losses[1]}")
+            if not same or ranks_losses[0] != ranks_losses[1]:
+                raise AssertionError(f"[train mesh {tag}] the ranks disagree")
+            t0 = time.time()
+            back, meta = CK.auto_resume(os.path.join(out, tag), template)
+            ok = (back is not None and meta["step"] == 3
+                  and _digests(back.params) == reps[0][tag]["ckpt_digests"])
+            log(f"[train mesh {tag}] the checkpoint rank 0 wrote (the whole "
+                f"tree) loaded on one card in {time.time() - t0:.1f} s: step "
+                f"{meta['step']}, parameters bit-equal to the gathered ones "
+                f"{ok}")
+            if not ok:
+                raise AssertionError(f"[train mesh {tag}] the checkpoint differs")
+            del back
+            shutil.rmtree(os.path.join(out, tag))
+        del template
+    torch.cuda.empty_cache()
+    return reps
+
+
+def phase_vae_train(name):
+    """``vae_train_step`` (SGD, the EMA codebook hits) on the default VQVAE
+    at 256px, B=8, f32, 3 steps on one batch: the loss falls and the usage
+    is finite; then a small VQVAE, 3 steps on the card against the CPU:
+    losses and every parameter within 1e-4 of their size."""
+    _free_card("vae train, before")
+    vae_cfg = VQVAEConfig()
+    params = init_vqvae_params(vae_cfg, seed=3, device=DEV, eini=1.0)
+    img = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (8, 3, 256, 256)).astype(np.float32)).to(DEV)
+    st = VT.init_vae_train_state(vae_cfg, params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        st, m = VT.vae_train_step(vae_cfg, st, img, 1e-3)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    usage = m["usage_per_scale"].cpu()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok = losses[-1] < losses[0] and bool(torch.isfinite(usage).all())
+    log(f"[vae train] default VQVAE 256px B=8 f32 vae_train_step x3: losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)} (falling "
+        f"{losses[-1] < losses[0]}); {', '.join(f'{x:.1f}' for x in ms)} ms; "
+        f"usage per scale {[round(float(x), 3) for x in usage]} %; peak "
+        f"memory {peak:.2f} GiB on {name} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[vae train] the loss does not fall or the usage "
+                             "is not finite")
+    del st, params, img, m
+    torch.cuda.empty_cache()
+    small = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=SMALL_PNS)
+    p = init_vqvae_params(small, seed=3, device="cpu", eini=1.0)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        -1, 1, (2, 3, 48, 48)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", DEV):
+        s = VT.init_vae_train_state(small, _to(p, dev))
+        ls = []
+        with full_f32():
+            for _ in range(3):
+                s, m = VT.vae_train_step(small, s, x.to(dev), 1e-3)
+                ls.append(float(m["loss"]))
+        res[dev] = (s, ls)
+    (sc, lc), (sg, lg) = res["cpu"], res[DEV]
+    worst = max(_grad_err(a.cpu(), b) for (_, a), (_, b) in zip(
+        TR.tree_leaves(sg.params), TR.tree_leaves(sc.params)))
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    ok = worst <= 1e-4 and d_loss <= 1e-4
+    log(f"[vae train] small VQVAE 3 steps, card against the CPU: losses max "
+        f"rel. d {d_loss:.2e}, parameters max|d| / size {worst:.2e} (limit "
+        f"1e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[vae train] the card disagrees with the CPU")
+    return {"ms": ms, "peak_gib": peak}
+
+
+def phase_native_loader(name):
+    """The native C++ loader (``train/native_loader.py``): built from
+    ``csrc/dataloader.cpp`` with g++ into build/native/, or the reason it
+    did not build. A temp folder of 32 images (PIL-written JPEGs, or PNGs
+    from the library's own writer where PIL is absent); where the library
+    built, one batch of it with its shapes and range checked; then one
+    iteration of ``run_training(data_root=...)`` on the card, through the
+    library, or through the Python path (PIL) where it did not build."""
+    from sdvar_tpu_torch.train import native_loader as NL
+
+    t0 = time.time()
+    built = NL.native_available()
+    log(f"[native loader] built: {built} ({time.time() - t0:.1f} s)"
+        + ("" if built else f"; reason: {NL.build_error()}"))
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is None and not built:
+        log("[native loader] neither PIL nor the library here: no folder run")
+        return {"built": False, "run_training": False}
+    rng = np.random.default_rng(6)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        for c in range(4):  # 32 images: an epoch of 4 batches of 8
+            d = os.path.join(root, f"class{c}")
+            os.makedirs(d)
+            arrs = rng.integers(0, 255, (8, 300, 340, 3), dtype=np.uint8)
+            if Image is not None:
+                for i, a in enumerate(arrs):
+                    Image.fromarray(a).save(os.path.join(d, f"{i}.jpg"))
+            else:
+                NL.write_pngs_native(d, arrs)
+        if built:
+            paths = sorted(os.path.join(r, f) for r, _, fs in os.walk(root)
+                           for f in fs)
+            loader = NL.NativeImageLoader(paths, [0] * len(paths), reso=256,
+                                          train=True, seed=0, num_threads=4)
+            imgs, _ = loader.batch(list(range(len(paths))))
+            loader.close()
+            ok = (imgs.shape == (len(paths), 3, 256, 256)
+                  and float(imgs.min()) >= -1.0 and float(imgs.max()) <= 1.0)
+            log(f"[native loader] {len(paths)} "
+                f"{'JPEGs (PIL)' if Image else 'PNGs (the library writer)'}: "
+                f"batch {imgs.shape} in [{imgs.min():.3f}, {imgs.max():.3f}] "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("[native loader] batch shape or range")
+        if Image is None:
+            log("[native loader] run_training(data_root=...) skipped: its "
+                "held-out split reads the folder through PIL, absent here")
+            return {"built": built, "run_training": False}
+        tc = TrainConfig(depth=TRAIN_DEPTH, global_batch_size=8, epochs=1)
+        t0 = time.time()
+        _, hist = TL.run_training(tc, data_root=root,
+                                  out_dir=os.path.join(tmp, "out"),
+                                  max_iters=1, batch_override=8, device=DEV)
+    ok = len(hist) == 1 and math.isfinite(hist[0]["loss"])
+    log(f"[native loader] run_training(data_root=...) d16 bs 8, 1 iteration "
+        f"through {'the native loader' if built else 'the Python path'} on "
+        f"the card in {time.time() - t0:.1f} s: loss {hist[0]['loss']:.4f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[native loader] run_training")
+    torch.cuda.empty_cache()
+    return {"built": built, "run_training": True}
+
+
 MESH_ROWS = ("attention", "sampler", "attention_int8", "act_quantize",
              "int8_matmul")
 
@@ -3534,6 +4021,8 @@ def main() -> int:
         return mesh_rank_main(sys.argv[2])
     if sys.argv[1:2] == ["--mesh4-rank"]:  # one rank of phase_mesh_replicated
         return mesh4_rank_main(sys.argv[2])
+    if sys.argv[1:2] == ["--train-mesh-rank"]:  # one rank of phase_train_mesh
+        return train_mesh_rank_main(sys.argv[2])
     t_start = time.time()
     name = phase_device_and_build()
     with full_f32():  # the plain f32 versions' products, as the kernels'
@@ -3566,6 +4055,13 @@ def main() -> int:
     train = phase_train(name)
     smoke = phase_train_smoke()
     log(f"[train] phases took {time.time() - t_train:.1f} s")
+    t_train = time.time()
+    train_mesh = phase_train_mesh(name)
+    log(f"[train mesh] phase took {time.time() - t_train:.1f} s")
+    t_train = time.time()
+    phase_vae_train(name)
+    phase_native_loader(name)
+    log(f"[vae train, native loader] phases took {time.time() - t_train:.1f} s")
     phase_mesh_replicated()
     t_mesh = time.time()
     reps = phase_mesh(name)
@@ -3592,6 +4088,9 @@ def main() -> int:
             row["train"] = {"launches_per_step": train["launches_per_step"],
                             "remat_launches_per_step":
                                 train["remat_launches_per_step"],
+                            "mesh_launches_per_step_per_rank": {
+                                tag: train_mesh[0][tag]["launches_per_step"]
+                                for tag in TRAIN_MESHES},
                             "L680": train_att[680],
                             "L424": train_att[TRAIN_PREFIX],
                             "smoke_f32_hd32": smoke}

@@ -2,8 +2,11 @@
 ``sdvar_tpu/models/quantizer.py``): the codebook gather, the phi convs and
 the per-scale state update of the generation loop; the residual-pyramid
 ``encode`` (nearest codebook entry per scale), ``idx_to_var_input`` (the
-training forward's teacher-forcing input) and ``embed_to_fhat``. f32
-throughout; the resizes are dense f32 einsums (ops/resize.py).
+training forward's teacher-forcing input) and ``embed_to_fhat``; and the
+training half of VQVAE training: ``vq_train_forward`` (straight-through
+f_hat, per-scale codebook hits, the commitment and codebook losses),
+``update_vocab_hit_ema`` and ``vocab_usage_per_scale``. f32 throughout;
+the resizes are dense f32 einsums (ops/resize.py).
 """
 
 from __future__ import annotations
@@ -166,3 +169,62 @@ def embed_to_fhat(cfg: VQVAEConfig, params: Params,
         if not last_one:
             outs.append(f_hat)
     return f_hat if last_one else outs
+
+
+# ---------------------------------------------------------------------------
+# the training half: VQVAE training's quantize pass and codebook statistics
+# ---------------------------------------------------------------------------
+
+def vq_train_forward(cfg: VQVAEConfig, params: Params, f_BChw: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The quantize pass of VQVAE training. Returns (f_hat with the
+    straight-through estimator ``f + (f_hat - f).detach()``: the values of
+    f_hat, the gradient of f; the per-scale codebook hits (SN, V) f32, the
+    ``bincount`` of each scale's ids; the mean over scales of the
+    beta-weighted commitment term ``beta * mse(f_hat.detach(), f)`` plus
+    the codebook term ``mse(f_hat, f.detach())``). The hits are this
+    rank's: a trainer on a mesh sums them over "data"."""
+    B, C, H, W = f_BChw.shape
+    f = f_BChw.float()
+    f_ng = f.detach()
+    f_rest = f_ng
+    f_hat = torch.zeros_like(f_ng)
+    SN, V = len(cfg.patch_nums), cfg.vocab_size
+    loss = 0.0
+    hits = []
+    for si, pn in enumerate(cfg.patch_nums):
+        z = f_rest if si == SN - 1 else area_resize(f_rest, (pn, pn))
+        idx_N = lookup_codes(cfg, params, z.permute(0, 2, 3, 1).reshape(-1, C))
+        hits.append(torch.bincount(idx_N.long(), minlength=V).float())
+        h = embed(params, idx_N).reshape(B, pn, pn, C).permute(0, 3, 1, 2)
+        h = _upsample_refine(cfg, params, si, h, H)
+        f_hat = f_hat + h
+        f_rest = f_rest - h
+        loss = loss + cfg.beta * ((f_hat.detach() - f) ** 2).mean() \
+            + ((f_hat - f_ng) ** 2).mean()
+    loss = loss / SN
+    f_hat_st = f + (f_hat - f_ng).detach()
+    return f_hat_st, torch.stack(hits), loss
+
+
+def update_vocab_hit_ema(ema_SV: torch.Tensor, hit_SV: torch.Tensor,
+                         record_hit: int) -> torch.Tensor:
+    """The EMA codebook-hit tracker: step 0 copies the hits, steps below 100
+    blend 0.9 / 0.1, later steps 0.99 / 0.01. ``hit_SV`` must already be
+    summed over the data ranks."""
+    if record_hit == 0:
+        return hit_SV.clone()
+    if record_hit < 100:
+        return ema_SV * 0.9 + hit_SV * 0.1
+    return ema_SV * 0.99 + hit_SV * 0.01
+
+
+def vocab_usage_per_scale(cfg: VQVAEConfig, ema_SV: torch.Tensor,
+                          batch_tokens: int, world_size: int = 1
+                          ) -> torch.Tensor:
+    """Per-scale % of codebook entries in use: an entry counts where its
+    EMA hit count reaches ``world_size * batch_tokens / V * 0.08``
+    (``batch_tokens``: B*H*W of the last feature map of one rank). Returns
+    (SN,) f32."""
+    margin = world_size * batch_tokens / cfg.vocab_size * 0.08
+    return (ema_SV >= margin).float().mean(dim=-1) * 100.0

@@ -31,6 +31,15 @@ model rank holds (h, the modulations) stay bit-identical across ranks:
 they come from collectives that hand every rank the same bits. A
 quantized amax over a split axis (the INT8 KV scales, the W8A8
 activations of proj and fc2) is all-reduced (max) before the division.
+
+Training under a mesh differentiates through those collectives
+(``ops.partition``'s autograd forms, each only where its width splits):
+the replicated input of qkv, fc1, the AdaLN projection and the head goes
+through ``copy_to_model``, proj and fc2 sum through ``reduce_from_model``,
+the 6C modulations and the vocab logits are gathered with
+``gather_from_model`` (``var_train_forward`` returns whole rows of
+logits). The batch rows split over "data"; the training draws are made for
+the whole batch and each rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -51,7 +60,13 @@ from sdvar_tpu_torch.ops.attention import (
     use_cache_kernel,
 )
 from sdvar_tpu_torch.ops.masks import block_causal_prefix, device_bias
-from sdvar_tpu_torch.ops.partition import gather_model, model_split
+from sdvar_tpu_torch.ops.partition import (
+    copy_to_model,
+    data_count,
+    data_rows,
+    gather_from_model,
+    model_split,
+)
 from sdvar_tpu_torch.ops.quantization import (
     QuantizedKVCache,
     W8A8Linear,
@@ -195,11 +210,9 @@ def cond_six(cfg: VARConfig, params: Params, cond_BD: torch.Tensor
     all-gathered where they split over "model")."""
     c = F.silu(cond_BD.float())
     if cfg.shared_aln:
-        sal = params["shared_ada_lin"]
-        g = c @ sal["w"].float() + sal["b"]
-        if model_split(6 * cfg.embed_dim) > 1:
-            g = gather_model(g)
-        return g.reshape(-1, 1, 6, cfg.embed_dim)
+        sal, n = params["shared_ada_lin"], 6 * cfg.embed_dim
+        g = copy_to_model(c, n) @ sal["w"].float() + sal["b"]
+        return gather_from_model(g, n).reshape(-1, 1, 6, cfg.embed_dim)
     return c
 
 
@@ -214,6 +227,7 @@ def precompute_modulations(cfg: VARConfig, params: Params,
     blocks = params["blocks"]
     if cfg.shared_aln:
         return cond_pre[None, :, 0] + blocks["ada_gss"][:, :1].float()
+    cond_pre = copy_to_model(cond_pre, 6 * C)
     w_all = blocks["ada_lin_w"]  # a dequantised layer at a time when INT8
     # summed in f64 and rounded once to f32, so that a column's bits do not
     # depend on how many columns or rows the call computes: cuBLAS picks
@@ -224,8 +238,7 @@ def precompute_modulations(cfg: VARConfig, params: Params,
         (c64 @ resolve_weight(layer_slice(w_all, li), torch.float64)).float() + b
         for li, b in enumerate(blocks["ada_lin_b"])
     ])
-    if model_split(6 * C) > 1:
-        six = gather_model(six)
+    six = gather_from_model(six, 6 * C)
     return six.reshape(cfg.depth, -1, 6, C)
 
 
@@ -252,7 +265,8 @@ def _attention(cfg: VARConfig, layer: Dict, x: torch.Tensor,
                          f"parameters with parallel.mesh.shard_tree")
     qkv_bias = torch.cat([layer["q_bias"], torch.zeros_like(layer["q_bias"]),
                           layer["v_bias"]]).to(x.dtype)
-    qkv = linear_blc(x, layer["qkv_w"], x.dtype) + qkv_bias
+    x_in = copy_to_model(x, cfg.num_heads)
+    qkv = linear_blc(x_in, layer["qkv_w"], x.dtype) + qkv_bias
     q, k, v = qkv.view(B, L, 3, H, hd).unbind(2)  # (B, L, H, hd) views
 
     if cfg.attn_l2_norm:
@@ -327,7 +341,8 @@ def _ffn(cfg: VARConfig, layer: Dict, x: torch.Tensor) -> torch.Tensor:
                                      sharded=sharded)
         return w8a8_prequant_matmul(hq, hs, fc2, x.dtype, sharded=sharded) \
             + layer["fc2_b"].to(x.dtype)
-    h = linear_blc(x, layer["fc1_w"], x.dtype) + layer["fc1_b"].to(x.dtype)
+    h = linear_blc(copy_to_model(x, cfg.mlp_hidden), layer["fc1_w"], x.dtype) \
+        + layer["fc1_b"].to(x.dtype)
     h = F.gelu(h, approximate="tanh")
     return linear_rows(h, fc2, x.dtype, split) + layer["fc2_b"].to(x.dtype)
 
@@ -449,6 +464,7 @@ def get_logits(cfg: VARConfig, params: Params, h: torch.Tensor,
     ss = ss.reshape(-1, 1, 2, C)
     scale, shift = ss[:, :, 0, :], ss[:, :, 1, :]
     h32 = _ln(h.float(), cfg.norm_eps) * (scale + 1.0) + shift
+    h32 = copy_to_model(h32, cfg.vocab_size)
     return linear_blc(h32, params["head"]["w"], torch.float32) \
         + params["head"]["b"]
 
@@ -491,7 +507,7 @@ def var_train_forward(
     dev = x_BLCv_wo_first_l.device
     ed = cfg.L if prog_si < 0 else cfg.begin_ends[prog_si][1]
     if masks is None and generator is not None:
-        masks = draw_train_masks(cfg, B, ed, generator, dev)
+        masks = _local_draws(cfg, B, ed, generator, dev)
     masks = masks or {}
     label_B = torch.as_tensor(label_B, device=dev).long()
     if "cond_drop" in masks:
@@ -509,7 +525,22 @@ def var_train_forward(
                                 tuple(cfg.patch_nums), ed)
     h = apply_transformer(cfg, params, x, sos, attn_bias=attn_bias,
                           masks=masks, remat=remat)
-    return get_logits(cfg, params, h, sos)
+    return gather_from_model(get_logits(cfg, params, h, sos), cfg.vocab_size)
+
+
+def _local_draws(cfg: VARConfig, B: int, L: int, generator: torch.Generator,
+                 device) -> Dict[str, torch.Tensor]:
+    """``draw_train_masks`` for this rank's B rows: under a data split the
+    draws of the whole batch (B x data rows, the same generator state on
+    every rank), then this rank's rows of them, so a mesh run sees the
+    single-device run's draws."""
+    n = data_count()
+    masks = draw_train_masks(cfg, B * n, L, generator, device)
+    if n == 1:
+        return masks
+    rows = data_rows(B * n)
+    return {k: (v[rows] if k == "cond_drop" else v[:, :, rows])
+            for k, v in masks.items()}
 
 
 def count_params(params: Params) -> int:

@@ -145,6 +145,10 @@ def device_bias(device: torch.device, fn: Callable, *args
     """``fn(*args)`` (one of the masks above) as a float32 tensor on
     ``device``, made once per (device, fn, args); None where ``fn`` gives
     None (sd_mask 0). The tensors are shared: callers must not write to
-    them."""
+    them. Made outside inference mode even when a decode asks first, so
+    that the training attention can save the bias for its backward."""
     a = fn(*args)
-    return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if a is None:
+        return None
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)

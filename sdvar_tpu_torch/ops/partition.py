@@ -30,8 +30,13 @@ lets GSPMD partition the XLA composition). The batch rows must divide
 over "data".
 
 The registry (``set_tp_mesh``) is read at call time by ``models/var.py``,
-``engine/decode.py`` and the KV caches. A 1x1 mesh is a no-op: the
-unsharded kernels and no collective, as in the JAX package.
+``engine/decode.py``, the KV caches and ``train/trainer.py``. A 1x1 mesh
+is a no-op: the unsharded kernels and no collective, as in the JAX
+package.
+
+Training differentiates through the model's collectives: ``copy_to_model``,
+``reduce_from_model`` and ``gather_from_model`` are their autograd forms
+(below), and ``mean_over_data`` averages the gradients over "data".
 """
 
 from __future__ import annotations
@@ -46,6 +51,9 @@ from sdvar_tpu_torch.ops.kernels.sampling import (
 from sdvar_tpu_torch.ops.kernels.scale_probe import scale_probe
 
 DATA, MODEL = "data", "model"
+# f32 elements in one all-reduce of ``mean_over_data`` (256 MiB): d16's
+# 1.2 GB of gradients go in five calls, not one a leaf.
+DATA_BUCKET = 1 << 26
 
 _TP_MESH = None
 
@@ -114,6 +122,130 @@ def gather_data(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
     order."""
     m = _active_mesh()
     return t if m is None else m.all_gather(t, DATA, dim)
+
+
+# ---------------------------------------------------------------------------
+# collectives with gradients (the training forward)
+# ---------------------------------------------------------------------------
+#
+# GSPMD gives the JAX package the gradient of every collective it inserts;
+# here each is a ``torch.autograd.Function``, Megatron's pair and a gather:
+#
+#   copy_to_model      identity forward,   all-reduce (sum) over "model" backward
+#   reduce_from_model  all-reduce forward, identity backward
+#   gather_from_model  all-gather forward, this rank's slice backward
+#
+# Each is placed only at a layer whose width splits (``model_split(n) > 1``):
+# a replicated value x that feeds a split layer goes through copy_to_model,
+# so that its gradient sums every rank's share; the split partial products
+# come back through reduce_from_model or gather_from_model, whose output is
+# replicated, and whose incoming gradient is then the same on every model
+# rank. A width held whole on every rank takes none of them (its gradient
+# is whole on each rank already; an all-reduce would multiply it by the
+# model count). Without gradients (inference, eval) they fall back to the
+# in-place forms above, with their bits.
+
+
+def _recording(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduced(g, MODEL), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduced(x, MODEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.per = mesh, dim, x.shape[dim]
+        return mesh.all_gather(x, MODEL, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = ctx.mesh.model_index
+        return g.narrow(ctx.dim, i * ctx.per, ctx.per).contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x, a value every model rank holds, entering a layer of width ``n``
+    that splits over "model": itself forward; its gradient summed over the
+    model ranks backward. A no-op where n does not split, without a mesh
+    or without gradients."""
+    if model_split(n) == 1 or not _recording(x):
+        return x
+    return _CopyToModel.apply(x, _active_mesh())
+
+
+def reduce_from_model(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The sum over the model ranks of their partial products of a layer
+    whose ``n`` input rows split (proj, fc2): an all-reduce into a new
+    tensor forward, the gradient as it is backward. Without gradients the
+    in-place ``reduce_model``; x itself where n does not split."""
+    if model_split(n) == 1:
+        return x
+    if not _recording(x):
+        return reduce_model(x)
+    return _ReduceFromModel.apply(x, _active_mesh())
+
+
+def gather_from_model(x: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """The model ranks' column shards of a width-``n`` output (AdaLN's 6C,
+    the vocab), concatenated on ``dim``: forward an all-gather, backward
+    this rank's slice of the gradient. Without gradients
+    ``gather_model``; x itself where n does not split."""
+    if model_split(n) == 1:
+        return x
+    if not _recording(x):
+        return gather_model(x, dim)
+    return _GatherFromModel.apply(x, _active_mesh(), dim % x.dim())
+
+
+def data_count() -> int:
+    """The number of ranks that split the batch (1 without a mesh)."""
+    m = _active_mesh()
+    return 1 if m is None else m.data
+
+
+def mean_over_data(tensors):
+    """The mean over the data ranks of each of ``tensors`` (gradients,
+    metrics), new tensors of their shapes and dtypes: flattened into f32
+    buckets of at most ``DATA_BUCKET`` elements, one all-reduce a bucket,
+    then divided by the data count. The list itself without a data split."""
+    tensors = list(tensors)
+    m = _active_mesh()
+    if m is None or m.data == 1:
+        return tensors
+    out, i = [], 0
+    while i < len(tensors):
+        j, size = i, 0
+        while j < len(tensors) and (
+                j == i or size + tensors[j].numel() <= DATA_BUCKET):
+            size += tensors[j].numel()
+            j += 1
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors[i:j]])
+        m.all_reduce(flat, DATA)
+        flat = flat / m.data
+        for t, part in zip(tensors[i:j], flat.split([t.numel() for t in tensors[i:j]])):
+            out.append(part.view(t.shape).to(t.dtype))
+        i = j
+    return out
 
 
 def gather_vocab(t: torch.Tensor, vocab: int) -> torch.Tensor:

@@ -46,7 +46,12 @@ import torch
 from sdvar_tpu_torch.config import VARConfig
 from sdvar_tpu_torch.ops.kernels.matmul_int8 import int8_matmul_blc
 from sdvar_tpu_torch.ops.kernels.quantize import act_quantize, act_scale
-from sdvar_tpu_torch.ops.partition import data_rows, model_split, reduce_model
+from sdvar_tpu_torch.ops.partition import (
+    data_rows,
+    model_split,
+    reduce_from_model,
+    reduce_model,
+)
 from sdvar_tpu_torch.utils.device import resolve_device
 
 
@@ -261,14 +266,16 @@ def linear_rows(x_blc: torch.Tensor, w, dtype, split: int) -> torch.Tensor:
     (proj, fc2): x holds this rank's columns. Each rank's partial product
     is summed over the model ranks: a ``W8A8Linear`` sums its exact int32
     partials before the scale epilogue (the unsharded bits), any other
-    weight its partials in ``dtype``. ``split``: the ranks that split the
-    rows (``model_split(width)``); with 1, ``linear_blc``."""
+    weight its partials in ``dtype`` (with a gradient in training:
+    ``reduce_from_model``). ``split``: the ranks that split the rows
+    (``model_split(width)``); with 1, ``linear_blc``."""
     if split == 1:
         return linear_blc(x_blc, w, dtype)
     if isinstance(w, W8A8Linear):
         xq, xs = quantize_activation(x_blc, sharded=True)
         return w8a8_prequant_matmul(xq, xs, w, dtype, sharded=True)
-    return reduce_model(linear_blc(x_blc, w, dtype))
+    return reduce_from_model(linear_blc(x_blc, w, dtype),
+                             x_blc.shape[-1] * split)
 
 
 # ---------------------------------------------------------------------------

@@ -78,9 +78,13 @@ def area_weight_matrix(in_size: int, out_size: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _weights_on(kind: str, in_size: int, out_size: int,
                 device: torch.device) -> torch.Tensor:
+    """The matrix on ``device``, made once; made outside inference mode
+    even when a decode asks first, so that a training forward (VQVAE
+    training's resizes) can save it for its backward."""
     fn = bicubic_weight_matrix if kind == "bicubic" else area_weight_matrix
-    return torch.as_tensor(fn(in_size, out_size), dtype=torch.float32,
-                           device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(fn(in_size, out_size), dtype=torch.float32,
+                               device=device)
 
 
 def _apply_separable(x: torch.Tensor, kind: str, out_hw) -> torch.Tensor:

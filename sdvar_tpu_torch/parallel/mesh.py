@@ -22,7 +22,10 @@ cache splits its batch rows over "data" and its merged heads over "model";
 the batch splits over "data" in contiguous slices.
 
 A spec is a tuple with one entry per axis: None (whole), ``DATA``,
-``MODEL`` or ``MODEL_QKV``. A 1x1 mesh cuts nothing.
+``MODEL`` or ``MODEL_QKV``; a spec of None keeps a whole subtree. A 1x1
+mesh cuts nothing. ``unshard_tree`` gathers a whole tree back from the
+shards (checkpoints of a mesh run); the optimizer state takes its
+parameter's spec (``train.trainer.opt_state_specs``).
 """
 
 from __future__ import annotations
@@ -85,6 +88,17 @@ class Mesh:
         t = t.contiguous()
         dist.all_reduce(t, op=_OPS[op], group=group)
         return t
+
+    def all_reduced(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum over ``axis`` into a new tensor: t is left as it was, so
+        the result can stand in an autograd graph (the collectives with
+        gradients of ``ops/partition.py``)."""
+        n, _, group = self._axis(axis)
+        if n == 1:
+            return t
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
 
     def all_gather(self, t: torch.Tensor, axis: str = MODEL,
                    dim: int = -1) -> torch.Tensor:
@@ -225,8 +239,11 @@ def _leaf(a, spec: tuple, mesh: Mesh, name: str):
 def shard_tree(tree, specs, mesh: Mesh, _path: str = ""):
     """This rank's shard of a full parameter tree under a matching spec
     tree; quantized leaves as ``_leaf`` says (a ``W8A8Linear`` stays
-    K-major). Raises ``ValueError`` naming the leaf whose dimension does not
-    divide the mesh."""
+    K-major). A spec of None keeps its whole subtree as it is (a step
+    count, a replicated part). Raises ``ValueError`` naming the leaf whose
+    dimension does not divide the mesh."""
+    if specs is None:
+        return tree
     if isinstance(tree, dict):
         if not isinstance(specs, dict) or set(tree) != set(specs):
             raise ValueError(f"{_path or 'tree'}: the spec tree does not match "
@@ -234,3 +251,35 @@ def shard_tree(tree, specs, mesh: Mesh, _path: str = ""):
         return {k: shard_tree(v, specs[k], mesh, f"{_path}/{k}")
                 for k, v in tree.items()}
     return _leaf(tree, specs, mesh, _path)
+
+
+def _uncut(a: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    for axis, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axis_name = DATA if entry == DATA else MODEL
+        n = mesh._axis(axis_name)[0]
+        if n == 1:
+            continue
+        parts = 3 if entry == MODEL_QKV else 1
+        a = a.unflatten(axis, (parts, a.shape[axis] // parts))
+        a = mesh.all_gather(a, axis_name, dim=axis + 1).flatten(axis, axis + 1)
+    return a
+
+
+def unshard_tree(tree, specs, mesh: Mesh, _path: str = ""):
+    """The inverse of ``shard_tree`` for float leaves: the whole tree from
+    this rank's shards, all-gathered over the axes each spec splits (every
+    rank of the mesh calls it, in the same order: the gathers are
+    collective). Checkpoints of a mesh run write what it returns."""
+    if specs is None:
+        return tree
+    if isinstance(tree, dict):
+        if not isinstance(specs, dict) or set(tree) != set(specs):
+            raise ValueError(f"{_path or 'tree'}: the spec tree does not match "
+                             f"the parameter tree")
+        return {k: unshard_tree(v, specs[k], mesh, f"{_path}/{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, QUANTIZED):
+        raise ValueError(f"{_path}: unshard_tree takes float leaves only")
+    return _uncut(tree, specs, mesh)

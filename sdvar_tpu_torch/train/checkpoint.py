@@ -8,6 +8,13 @@ naming and meta dict with a torch state file in place of orbax's. Only
 the master process writes, into a temporary directory beside the target
 that is renamed into place, so a reader never sees half a checkpoint.
 ``auto_resume`` loads the newest one.
+
+On a mesh (``specs`` and ``mesh`` given: the spec tree of the state,
+``train.trainer.train_state_specs``) every rank gathers the whole tree
+from the shards (``parallel.mesh.unshard_tree``, collective), rank 0
+writes it between two barriers, in the single-device format; a load reads
+the whole tree on every rank and cuts this rank's shard
+(``shard_tree``). So a mesh run resumes on one device, and back.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from sdvar_tpu_torch.parallel import distributed as D
+from sdvar_tpu_torch.parallel.mesh import shard_tree, unshard_tree
 from sdvar_tpu_torch.utils.logging import is_master
 
 
@@ -33,10 +42,19 @@ def _plain(tree: Any) -> Any:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
-                    meta: Optional[Dict[str, Any]] = None) -> str:
-    """Write ``ckpt-<step>`` under ckpt_dir (master only; atomic). Returns
-    its path."""
+                    meta: Optional[Dict[str, Any]] = None, specs=None,
+                    mesh=None) -> str:
+    """Write ``ckpt-<step>`` under ckpt_dir (master only; atomic); on a
+    mesh the whole tree gathered from every rank's shard (every rank
+    calls it). Returns its path."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"ckpt-{step:08d}"))
+    if specs is not None and mesh is not None:
+        whole = unshard_tree(_plain(tree), specs, mesh)
+        D.barrier()
+        try:
+            return save_checkpoint(ckpt_dir, step, whole, meta)
+        finally:
+            D.barrier()
     if not is_master():
         return path
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -86,14 +104,19 @@ def _device_of(tree: Any) -> Optional[torch.device]:
     return None
 
 
-def load_checkpoint(path: str, template: Any) -> Tuple[Any, Dict]:
+def load_checkpoint(path: str, template: Any, specs=None,
+                    mesh=None) -> Tuple[Any, Dict]:
     """Read a checkpoint into ``template``'s structure, shapes and device
-    (a mismatch raises). Returns (tree, meta); the tree is a dataclass of
-    the template's class when the template is one."""
+    (a mismatch raises); on a mesh the template is this rank's shard and
+    the whole tree read is cut by ``specs``. Returns (tree, meta); the
+    tree is a dataclass of the template's class when the template is
+    one."""
     want = _plain(template)
     dev = _device_of(want)
     tree = torch.load(os.path.join(path, "tree.pt"), map_location=dev,
                       weights_only=True)
+    if specs is not None and mesh is not None:
+        tree = shard_tree(tree, specs, mesh)  # raises on another structure
     _check_like(tree, want)
     meta = {"step": 0}
     meta_path = os.path.join(path, "meta.json")
@@ -105,14 +128,16 @@ def load_checkpoint(path: str, template: Any) -> Tuple[Any, Dict]:
     return tree, meta
 
 
-def auto_resume(ckpt_dir: str, template: Any) -> Tuple[Optional[Any], Dict]:
+def auto_resume(ckpt_dir: str, template: Any, specs=None,
+                mesh=None) -> Tuple[Optional[Any], Dict]:
     """The newest checkpoint under ckpt_dir (by modification time, then by
-    name) that loads into ``template``; (None, {"step": 0}) if none does."""
+    name) that loads into ``template`` (on a mesh: cut by ``specs``);
+    (None, {"step": 0}) if none does."""
     cands = glob.glob(os.path.join(ckpt_dir, "ckpt-*"))
     for path in sorted(cands, key=lambda p: (os.path.getmtime(p), p),
                        reverse=True):
         try:
-            return load_checkpoint(path, template)
+            return load_checkpoint(path, template, specs, mesh)
         except Exception as e:  # keep trying older checkpoints
             print(f"[auto_resume] failed to load {path}: {e}")
     return None, {"step": 0}

@@ -20,10 +20,24 @@ optimizer state is a dict of trees of the parameters' shapes: ``mu`` and
 ``nu`` (Adam) or ``v_row``, ``v_col`` and ``v`` (factored RMS, with
 placeholders of shape (1,) where a leaf is not factored, as optax keeps
 them), and ``count``, the updates taken.
+
+On a mesh (``ops.partition.set_tp_mesh``; ``shard_train_state`` cuts a
+whole state) each rank holds its shard of the parameters and of their
+optimizer state (each moment takes its parameter's spec;
+``opt_state_specs``) and its rows of the batch. The step then averages
+the gradients over "data" before the clip (one all-reduce a bucket,
+``ops.partition.mean_over_data``); the global norm sums the squares of the
+split leaves over "model" and counts a replicated leaf once; the factored
+RMS decides its axes on the whole shape and all-reduces its row and
+column means over a split axis; the metrics are averaged over "data", and
+``z_voc_usage`` comes from the vocabulary counts summed over "data". A
+replicated leaf gets the same gradient, and so the same bits, on every
+model rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -35,6 +49,15 @@ from sdvar_tpu_torch.config import VARConfig, VQVAEConfig
 from sdvar_tpu_torch.models import quantizer as Q
 from sdvar_tpu_torch.models import vqvae as VQ
 from sdvar_tpu_torch.models.var import var_train_forward
+from sdvar_tpu_torch.ops.partition import (
+    MODEL,
+    data_count,
+    get_tp_mesh,
+    mean_over_data,
+    reduce_data,
+    tp_mesh_active,
+)
+from sdvar_tpu_torch.parallel.mesh import MODEL_QKV, shard_tree, var_param_specs
 from sdvar_tpu_torch.train.schedule import NOWD_KEYS
 from sdvar_tpu_torch.utils.device import full_f32
 
@@ -103,10 +126,45 @@ def decay_mask(params: Dict) -> Dict:
 # the optimizer: global-norm clipping, then Adam or factored RMS (optax's)
 # ---------------------------------------------------------------------------
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, f32."""
-    return torch.sqrt(sum((g.float() * g.float()).sum()
-                          for _, g in tree_leaves(grads)))
+def mesh_layout(var_cfg: VARConfig):
+    """The ``layout`` the optimizer takes: (mesh, VAR parameter specs) of
+    the registered mesh of more than one rank, else None."""
+    if not tp_mesh_active():
+        return None
+    mesh = get_tp_mesh()
+    return mesh, var_param_specs(var_cfg, mesh)
+
+
+def split_axes(spec, mesh) -> Tuple[int, ...]:
+    """The axes of a leaf that split over "model" on ``mesh``."""
+    if mesh is None or spec is None or mesh.model == 1:
+        return ()
+    return tuple(i for i, e in enumerate(spec) if e in (MODEL, MODEL_QKV))
+
+
+def _split_tree(tree, layout):
+    """The axes of each leaf of ``tree`` that split over "model" under
+    ``layout`` (``mesh_layout``); () everywhere without one."""
+    if layout is None:
+        return tree_map(lambda _: (), tree)
+    mesh, specs = layout
+    return tree_map(lambda _, spec: split_axes(spec, mesh), tree, specs)
+
+
+def global_norm(grads, layout=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, f32. Under ``layout``
+    (``mesh_layout``) the squares of the leaves that split over "model"
+    are summed over the model ranks, and a replicated leaf counts once."""
+    sums = {False: [], True: []}  # split over "model" or not
+
+    def add(g, axes):
+        sums[bool(axes)].append((g.float() * g.float()).sum())
+
+    tree_map(add, grads, _split_tree(grads, layout))
+    total = sum(sums[False])
+    if sums[True]:
+        total = total + layout[0].all_reduced(sum(sums[True]), MODEL)
+    return torch.sqrt(total)
 
 
 def _factored_dims(shape, min_dim: int = FACTORED_MIN_DIM):
@@ -118,6 +176,54 @@ def _factored_dims(shape, min_dim: int = FACTORED_MIN_DIM):
     if shape[order[-2]] < min_dim:
         return None
     return int(order[-2]), int(order[-1])
+
+
+def opt_state_specs(params: Dict, specs: Dict, kind: str = "adamw",
+                    mesh=None) -> Dict:
+    """The spec tree of the optimizer state of ``params`` under parameter
+    ``specs``: Adam's moments take their parameter's spec; a factored
+    leaf's row moment its spec without the reduced column axis, its column
+    moment without the row axis; the placeholders and the count are whole.
+    ``params``: the whole tree, or with ``mesh`` this rank's shards of it
+    (the factored axes are decided on the whole shapes)."""
+    if kind == "adamw":
+        return {"count": None, "mu": specs, "nu": specs}
+
+    def parts(p, spec):
+        split = split_axes(spec, mesh)
+        dims = _factored_dims(tuple(n * (mesh.model if i in split else 1)
+                                    for i, n in enumerate(p.shape)))
+        if dims is None:
+            return (None,), (None,), spec
+        d1, d0 = dims
+        return (tuple(e for i, e in enumerate(spec) if i != d0),
+                tuple(e for i, e in enumerate(spec) if i != d1), (None,))
+
+    trio = tree_map(parts, params, specs)
+    return {"count": None, "v_row": _pick(trio, 0), "v_col": _pick(trio, 1),
+            "v": _pick(trio, 2)}
+
+
+def train_state_specs(params: Dict, var_cfg: VARConfig, mesh,
+                      kind: str = "adamw", whole: bool = False) -> Dict:
+    """The spec tree of a ``TrainState`` (as its ``dataclasses`` fields:
+    params, opt_state, step) on ``mesh``: what checkpoints cut and
+    gather. ``params``: this rank's shard, or the whole tree with
+    ``whole``."""
+    specs = var_param_specs(var_cfg, mesh)
+    return {"params": specs, "step": None, "opt_state": opt_state_specs(
+        params, specs, kind, None if whole else mesh)}
+
+
+def shard_train_state(state: "TrainState", var_cfg: VARConfig, mesh,
+                      kind: str = "adamw") -> "TrainState":
+    """This rank's shard of a whole train state: the parameters by
+    ``var_param_specs``, the optimizer state by ``opt_state_specs`` (the
+    factored axes decided on the whole shapes)."""
+    specs = train_state_specs(state.params, var_cfg, mesh, kind, whole=True)
+    return TrainState(shard_tree(state.params, specs["params"], mesh),
+                      shard_tree(state.opt_state, specs["opt_state"], mesh),
+                      state.step)
 
 
 def init_opt_state(params: Dict, kind: str = "adamw") -> Dict:
@@ -156,9 +262,12 @@ def _pick(tree, i):
     return tree[i]
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """optax's rule: unchanged below ``max_norm``, else (g / norm) * max."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
+    """optax's rule: unchanged below ``max_norm``, else (g / norm) * max
+    (``norm``: the global norm, ``global_norm(grads)`` when not given)."""
+    if norm is None:
+        norm = global_norm(grads)
     if max_norm <= 0:
         return grads
     small = norm < max_norm
@@ -191,32 +300,45 @@ def adam_update(grads, opt_state: Dict) -> Tuple[Dict, Dict]:
     return tree_map(direction, mu, nu), {"count": count, "mu": mu, "nu": nu}
 
 
-def factored_rms_update(grads, opt_state: Dict) -> Tuple[Dict, Dict]:
+def factored_rms_update(grads, opt_state: Dict,
+                        layout=None) -> Tuple[Dict, Dict]:
     """optax's ``scale_by_factored_rms`` (Adafactor's second moments, no
     first moment): decay 1 - (count + 1)^-0.8; a leaf whose two largest
     axes are both >= 128 keeps a row and a column mean of g^2 + 1e-30,
-    the others the full second moment; u = g * rsqrt of the estimate."""
+    the others the full second moment; u = g * rsqrt of the estimate.
+    Under ``layout`` (``mesh_layout``) the axes are chosen on the leaf's
+    whole shape, and a mean over an axis that splits over "model" is
+    all-reduced (the shards are of one size: the mean of their means)."""
     t = (opt_state["count"] + 1).to(torch.float32)
     decay = 1.0 - t ** torch.tensor(-FACTORED_DECAY, dtype=torch.float32)
 
-    def one(g, vr, vc, v):
+    mesh = layout[0] if layout is not None else None
+
+    def one(g, vr, vc, v, split):
         d = decay.to(g.device)
-        dims = _factored_dims(tuple(g.shape))
+        whole = tuple(n * (mesh.model if i in split else 1)
+                      for i, n in enumerate(g.shape))
+        dims = _factored_dims(whole)
         g2 = g * g + FACTORED_EPS
         if dims is None:
             nv = d * v + (1.0 - d) * g2
             return g * nv ** -0.5, vr, vc, nv
+
+        def mean(x, dim, axis, keepdim=False):
+            m = x.mean(dim=dim, keepdim=keepdim)
+            return mesh.all_reduced(m, MODEL) / mesh.model if axis in split else m
+
         d1, d0 = dims
-        nvr = d * vr + (1.0 - d) * g2.mean(dim=d0)
-        nvc = d * vc + (1.0 - d) * g2.mean(dim=d1)
+        nvr = d * vr + (1.0 - d) * mean(g2, d0, d0)
+        nvc = d * vc + (1.0 - d) * mean(g2, d1, d1)
         rd1 = d1 - 1 if d1 > d0 else d1
-        row_factor = (nvr / nvr.mean(dim=rd1, keepdim=True)) ** -0.5
+        row_factor = (nvr / mean(nvr, rd1, d1, keepdim=True)) ** -0.5
         col_factor = nvc ** -0.5
         u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
         return u, nvr, nvc, v
 
     out = tree_map(one, grads, opt_state["v_row"], opt_state["v_col"],
-                   opt_state["v"])
+                   opt_state["v"], _split_tree(grads, layout))
     state = {"count": opt_state["count"] + 1, "v_row": _pick(out, 1),
              "v_col": _pick(out, 2), "v": _pick(out, 3)}
     return _pick(out, 0), state
@@ -224,14 +346,16 @@ def factored_rms_update(grads, opt_state: Dict) -> Tuple[Dict, Dict]:
 
 def apply_optimizer(params: Dict, grads: Dict, opt_state: Dict,
                     lr: float, wd: float, clip: float = 2.0,
-                    kind: str = "adamw") -> Tuple[Dict, Dict]:
+                    kind: str = "adamw", layout=None) -> Tuple[Dict, Dict]:
     """clip -> Adam or factored RMS -> p + (-lr) * (u + wd * p * mask);
-    lr and wd in f32. Returns (params, opt_state), new tensors."""
-    grads = clip_by_global_norm(grads, clip) if clip > 0 else grads
+    lr and wd in f32. Returns (params, opt_state), new tensors.
+    ``layout``: ``mesh_layout``'s, on a mesh."""
+    if clip > 0:
+        grads = clip_by_global_norm(grads, clip, global_norm(grads, layout))
     if kind == "adamw":
         u, opt_state = adam_update(grads, opt_state)
     elif kind == "adafactor":
-        u, opt_state = factored_rms_update(grads, opt_state)
+        u, opt_state = factored_rms_update(grads, opt_state, layout)
     else:
         raise ValueError(f"optimizer {kind!r} (adamw | adafactor)")
     mask = decay_mask(params)
@@ -298,7 +422,8 @@ def loss_and_metrics(
         ce_plain = _ce_with_smoothing(logits, gt, 0.0)
         full = prog_si < 0 or ed == L
         V = var_cfg.vocab_size
-        counts = torch.bincount(pred.reshape(-1), minlength=V).float()
+        counts = reduce_data(torch.bincount(pred.reshape(-1), minlength=V)
+                             .float())
         usage = ((counts / counts.sum().clamp(min=1.0) > 0.001 / V)
                  .float().mean() * 100.0)
         minus1 = torch.tensor(-1.0, device=logits.device)
@@ -350,34 +475,48 @@ def train_step(
     clip: float = 2.0, label_smooth: float = 0.0, grad_accum: int = 1,
     dtype=torch.bfloat16, prog_si: int = -1, prog_wp: float = 1.0,
     remat: bool = False, tokenize_bf16: bool = False,
-    optimizer: str = "adamw", pretokenized: bool = False,
+    optimizer: str = "adamw", pretokenized: bool = False, timer=None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One step: tokenize -> forward/backward (summed over ``grad_accum``
-    micro-batches of B / grad_accum rows, then averaged) -> clip ->
-    optimizer. ``generator``: the step's training draws (None: the
-    forward is deterministic). Returns the new state (new tensors; the
-    given one is left as it was) and the metrics, device scalars:
-    ``METRICS`` plus loss, grad_norm (before clipping), lr and wd."""
+    micro-batches of B / grad_accum rows, then averaged) -> on a mesh the
+    mean over "data" -> clip -> optimizer. ``generator``: the step's
+    training draws (None: the forward is deterministic). On a mesh, img
+    and label_B are this rank's rows and ``state`` its shard. ``timer``: a
+    ``utils.profiling.SpanTimer`` that gets the spans tokenize, forward,
+    backward, data all-reduce and optimizer. Returns the new state (new
+    tensors; the given one is left as it was) and the metrics, device
+    scalars: ``METRICS`` plus loss, grad_norm (before clipping), lr and
+    wd."""
+    layout = mesh_layout(var_cfg)
+    span = timer.span if timer is not None else (
+        lambda name: contextlib.nullcontext())
     leaves = tree_map(lambda t: t.detach().requires_grad_(), state.params)
     flat = [t for _, t in tree_leaves(leaves)]
 
     def forward(img_mb, label_mb):
-        _, gt_BL, x_in = tokenize(var_cfg, vae_cfg, vae_params, img_mb,
-                                  tokenize_bf16, pretokenized)
-        return loss_and_metrics(var_cfg, leaves, label_mb, x_in, gt_BL,
-                                generator, label_smooth, dtype=dtype,
-                                prog_si=prog_si, prog_wp=prog_wp, remat=remat)
+        with span("tokenize"):
+            _, gt_BL, x_in = tokenize(var_cfg, vae_cfg, vae_params, img_mb,
+                                      tokenize_bf16, pretokenized)
+        with span("forward"):
+            return loss_and_metrics(var_cfg, leaves, label_mb, x_in, gt_BL,
+                                    generator, label_smooth, dtype=dtype,
+                                    prog_si=prog_si, prog_wp=prog_wp,
+                                    remat=remat)
+
+    def backward(loss):
+        with span("backward"):
+            return _grad(loss, flat)
 
     if grad_accum <= 1:
         loss, metrics = forward(img, label_B)
-        grads = list(_grad(loss, flat))
+        grads = list(backward(loss))
     else:
         mb = img.shape[0] // grad_accum
         grads, loss, metrics = None, 0.0, {k: 0.0 for k in METRICS}
         for i in range(grad_accum):
             sl = slice(i * mb, (i + 1) * mb)
             l_i, m_i = forward(img[sl], label_B[sl])
-            g_i = _grad(l_i, flat)
+            g_i = backward(l_i)
             grads = list(g_i) if grads is None else [
                 a + b for a, b in zip(grads, g_i)]
             loss = loss + l_i.detach()
@@ -385,13 +524,23 @@ def train_step(
         grads = [g / grad_accum for g in grads]
         loss = loss / grad_accum
         metrics = {k: v / grad_accum for k, v in metrics.items()}
-    it = iter(grads)
-    grads = tree_map(lambda _: next(it), state.params)
-    gnorm = global_norm(grads)
-    params, opt_state = apply_optimizer(state.params, grads, state.opt_state,
-                                        lr, wd, clip, optimizer)
+    loss = loss.detach()
+    if data_count() > 1:
+        with span("data all-reduce"):
+            grads = mean_over_data(grads)
+            means = ("Lm", "Lt", "Accm", "Acct")
+            red = mean_over_data([torch.stack([loss] + [metrics[k] for k in means])])[0]
+            loss = red[0]
+            metrics = dict(metrics, **{k: red[i + 1] for i, k in enumerate(means)})
+    with span("optimizer"):
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), state.params)
+        gnorm = global_norm(grads, layout)
+        params, opt_state = apply_optimizer(state.params, grads,
+                                            state.opt_state, lr, wd, clip,
+                                            optimizer, layout)
     dev = gnorm.device
-    metrics = dict(metrics, loss=loss.detach(), grad_norm=gnorm,
+    metrics = dict(metrics, loss=loss, grad_norm=gnorm,
                    lr=torch.tensor(lr, dtype=torch.float32, device=dev),
                    wd=torch.tensor(wd, dtype=torch.float32, device=dev))
     return TrainState(params, opt_state, state.step + 1), metrics
@@ -402,7 +551,11 @@ def eval_step(var_cfg: VARConfig, vae_cfg: VQVAEConfig, params: Dict,
               vae_params: Dict, img: torch.Tensor, label_B: torch.Tensor,
               dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
     """Eval sums for one batch: mean and last-scale CE (no smoothing) and
-    accuracies, each times the batch size, and ``tot`` (the batch size)."""
+    accuracies, each times the batch size, and ``tot`` (the batch size).
+    On a mesh, sums over this rank's rows: the caller adds them up over
+    the ranks (``parallel.distributed.allreduce_host``; the model ranks of
+    a data index hold the same sums, which scale the totals and ``tot``
+    alike)."""
     _, gt_BL, x_in = tokenize(var_cfg, vae_cfg, vae_params, img)
     logits = var_train_forward(var_cfg, params, label_B, x_in, dtype=dtype)
     ce = _ce_with_smoothing(logits, gt_BL, 0.0)

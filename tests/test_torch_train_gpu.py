@@ -109,3 +109,45 @@ def test_train_step_matches_the_cpu(cuda):
         for (_, a), (_, b) in zip(T.tree_leaves(sg.opt_state[name]),
                                   T.tree_leaves(sc.opt_state[name])):
             assert _rel(a.cpu(), b) <= 1e-4
+
+
+def test_autograd_collectives_at_one_rank_equal_no_mesh(cuda):
+    """A one-rank mesh registered: the collectives with gradients hand back
+    their inputs, and an f32 train_step on the card (the mesh layout, the
+    sharded optimizer's paths, the spans) gives the bits of the same step
+    with no mesh, with the same row-1 launches."""
+    from sdvar_tpu_torch.ops import partition as PT
+    from sdvar_tpu_torch.parallel.mesh import single_device_mesh
+    from sdvar_tpu_torch.utils.profiling import SpanTimer
+
+    vc = VARConfig(depth=2, num_classes=10, patch_nums=PNS, vocab_size=64,
+                   Cvae=8, head_dim=32, cond_drop_rate=0.0, drop_path_rate=0.0)
+    qc = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=PNS)
+    p = T.tree_map(lambda t: t.to(cuda), init_var_params(vc, seed=3, device="cpu"))
+    vae = T.tree_map(lambda t: t.to(cuda),
+                     init_vqvae_params(qc, seed=4, device="cpu", eini=1.0))
+    img = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (4, 3, 48, 48)).astype(np.float32)).to(cuda)
+    label = torch.tensor([0, 3, 5, 9], device=cuda)
+    x = torch.randn(4, 8, device=cuda, requires_grad=True)
+    outs = []
+    for mesh in (None, single_device_mesh()):
+        PT.set_tp_mesh(mesh)
+        try:
+            assert PT.copy_to_model(x, 8) is x
+            assert PT.reduce_from_model(x, 8) is x
+            assert PT.gather_from_model(x, 8) is x
+            n0 = attention_kernel.launches
+            timer = SpanTimer(cuda)
+            state, m = T.train_step(vc, qc, T.init_train_state(p), vae, img,
+                                    label, 1e-4, 0.05, None, label_smooth=0.1,
+                                    dtype=torch.float32, timer=timer)
+            outs.append((state, float(m["loss"]), attention_kernel.launches - n0,
+                         set(timer.report())))
+        finally:
+            PT.set_tp_mesh(None)
+    (s0, l0, n0, spans0), (s1, l1, n1, spans1) = outs
+    assert l0 == l1 and n0 == n1 == vc.depth
+    assert spans0 == spans1 == {"tokenize", "forward", "backward", "optimizer"}
+    for (_, a), (_, b) in zip(T.tree_leaves(s0.params), T.tree_leaves(s1.params)):
+        assert torch.equal(a, b)

@@ -2,7 +2,8 @@
 sdvar_tpu_torch.train.train_loop --smoke --device cpu`` exits 0 with finite
 losses; ``run_training`` on synthetic data (a tiny VAR and VQVAE, 48px)
 writes its JSON-lines log and a checkpoint where ``max_iters`` stops it,
-resumes from that checkpoint, and refuses a mesh (not ported yet)."""
+and resumes from that checkpoint. Mesh training through ``run_training``
+is held in ``test_torch_train_mesh.py``."""
 
 import json
 import os
@@ -11,10 +12,9 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 import torch
 
-from sdvar_tpu_torch.config import MeshConfig, TrainConfig, VARConfig, VQVAEConfig
+from sdvar_tpu_torch.config import TrainConfig, VARConfig, VQVAEConfig
 from sdvar_tpu_torch.train import train_loop as TL
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,10 +57,3 @@ def test_run_training_logs_checkpoints_and_resumes(tmp_path):
     assert state.step == 3 and [h["it"] for h in hist] == [3]
     assert os.path.isdir(os.path.join(out, "ckpt-00000003"))
 
-
-def test_run_training_refuses_a_mesh(tmp_path):
-    var_cfg, vae_cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.run_training(TrainConfig(depth=2, reso=48), out_dir=str(tmp_path),
-                        var_cfg=var_cfg, vae_cfg=vae_cfg, device="cpu",
-                        mesh_cfg=MeshConfig(data=2, model=1))
