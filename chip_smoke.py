@@ -32,8 +32,16 @@ global batch 32 through ``run_training`` on a 2x1 and a 1x2 mesh of two
 ranks sharing the card (gloo), against the single card, with each mesh's
 checkpoint loaded on one card, and a small f32 stack on both meshes; the
 VQVAE trainer at 256px; the native data loader's build and one
-``run_training`` iteration through it; and four ranks sharing the card
-with a stack whose heads do not divide the mesh. It checks the outputs and
+``run_training`` iteration through it; then high-resolution generation
+through the decode measuring tools' ``run()``: VAR-d36 512px with shared
+AdaLN at B=4 (``tools/bench_512``: ``generate_images``, bf16 and W8A8 +
+INT8 KV, the golden, channels-last bf16 and calibrated all-int8 pixel
+decoders at 512px) and the 1024px preset at the d16 width at B=2
+(``tools/bench_1024``), with launch counts from depth x scales, the
+presets' small stacks against the CPU, a d36-512 B=8 decode whose stacked
+cache passes 2^31 elements with the cache-kernel switch on (bit-equal to
+off) and kernel rows 1-6 at the new shapes; and four ranks sharing the
+card with a stack whose heads do not divide the mesh. It checks the outputs and
 the kernel launch counts of each path, holds small stacks on the card against
 the CPU plain path, times the three pixel decoders and the kernels (the
 act-quant, conv, sampler and fused W8A8 kernels also replayed in CUDA
@@ -48,6 +56,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import json
@@ -65,6 +74,8 @@ import torch
 import torch.nn.functional as F
 
 from sdvar_tpu_torch.config import (
+    PATCH_NUMS_512,
+    PATCH_NUMS_1024,
     MeshConfig,
     SamplingConfig,
     SpeculativeConfig,
@@ -78,6 +89,7 @@ from sdvar_tpu_torch.engine.decode import decode_all_scales, generate_images
 from sdvar_tpu_torch.engine.serving import GenerationServer
 from sdvar_tpu_torch.engine.speculative import SpeculativeEngine
 from sdvar_tpu_torch.models.var import (
+    KVCache,
     apply_transformer,
     get_logits,
     init_var_params,
@@ -92,12 +104,18 @@ from sdvar_tpu_torch.models.vqvae import (
 )
 from sdvar_tpu_torch.ops.kernels import _build
 from sdvar_tpu_torch.ops import attention as ATT
-from sdvar_tpu_torch.ops.attention import set_attention_bwd_chunk, set_cache_kernel
+from sdvar_tpu_torch.ops.attention import (
+    get_attention_impl,
+    set_attention_bwd_chunk,
+    set_attention_impl,
+    set_cache_kernel,
+)
 from sdvar_tpu_torch.ops.kernels.attention import (
     attention_cache_kernel,
     attention_cache_plain,
     attention_cache_write_kernel,
     attention_cache_write_plain,
+    KEY_TILE,
     attention_kernel,
     attention_plain,
     attention_plan,
@@ -135,6 +153,7 @@ from sdvar_tpu_torch.ops.kernels.scale_probe import (
     scale_probe_plain,
 )
 from sdvar_tpu_torch.ops import conv_s8 as conv_s8_ops
+from sdvar_tpu_torch.ops import quantization as QOPS
 from sdvar_tpu_torch.ops.partition import (
     data_rows,
     gather_data,
@@ -171,6 +190,8 @@ from sdvar_tpu_torch.train import trainer as TR
 from sdvar_tpu_torch.train import vae_trainer as VT
 from sdvar_tpu_torch.train.data import SyntheticImageNet, batch_arrays
 from sdvar_tpu_torch.tools import (
+    bench_512,
+    bench_1024,
     bench_serving,
     microbench_int8_matmul,
     probe_mesh_placement,
@@ -269,12 +290,12 @@ def sampler_bound(M, V, n_topk):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def act_quantize_bound(M, K, gelu):
-    """(bound ms, bound_by): x and the bias (bf16, with GELU) read once, the
-    int8 values and f32 scales written once, vs the function's f32
-    operations per element: bias, the tanh-GELU polynomial and tanh (10),
-    amax (2), divide and round (2); without GELU or bias 4."""
-    nbytes = M * K * (2 + 1) + M * 4 + (K * 2 if gelu else 0)
+def act_quantize_bound(M, K, gelu, x_itemsize=2):
+    """(bound ms, bound_by): x and the bias (x's type, with GELU) read
+    once, the int8 values and f32 scales written once, vs the function's
+    f32 operations per element: bias, the tanh-GELU polynomial and tanh
+    (10), amax (2), divide and round (2); without GELU or bias 4."""
+    nbytes = M * K * (x_itemsize + 1) + M * 4 + (K * x_itemsize if gelu else 0)
     ops = M * K * (14 if gelu else 4)
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1488,20 +1509,26 @@ def phase_conv_times(launches, per_decode, errs):
 SMALL_PNS = (1, 2, 3)
 
 
-def _small_stack(quant=None):
-    """The small stack of the card-vs-CPU checks on the CPU (depth 2,
-    patch_nums (1, 2, 3)): head redrawn at 0.05 and AdaLN biases drawn at
-    0.3, both from seeded generators, so the blocks take part (the
-    initialiser's AdaLN gammas of about 1e-5 would let every residual
-    branch enter h at 1e-5 of its size); with ``quantize_var_params(mode=
-    quant)``'s weights when ``quant``. Returns (vc, qc, params, vqvae)."""
-    vc = VARConfig(depth=2, num_classes=10, patch_nums=SMALL_PNS,
-                   vocab_size=64, Cvae=8, head_dim=32)
-    qc = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=SMALL_PNS)
+def _small_stack(quant=None, pns=SMALL_PNS, shared=False):
+    """The small stack of the card-vs-CPU checks on the CPU (depth 2, 32
+    per head, V=64, ``pns`` the schedule): head redrawn at 0.05 and the
+    AdaLN biases (with ``shared``, the shared projection's bias and
+    ada_gss) drawn at 0.3, both from seeded generators, so the blocks take
+    part (the initialiser's AdaLN gammas of about 1e-5 would let every
+    residual branch enter h at 1e-5 of its size); with
+    ``quantize_var_params(mode=quant)``'s weights when ``quant``. Returns
+    (vc, qc, params, vqvae)."""
+    vc = VARConfig(depth=2, num_classes=10, patch_nums=pns, vocab_size=64,
+                   Cvae=8, head_dim=32, shared_aln=shared)
+    qc = VQVAEConfig(vocab_size=64, z_channels=8, ch=32, patch_nums=pns)
     p = init_var_params(vc, seed=3, device="cpu")
     p["head"]["w"].normal_(0, 0.05, generator=torch.Generator().manual_seed(4))
-    p["blocks"]["ada_lin_b"].normal_(0, 0.3,
-                                     generator=torch.Generator().manual_seed(6))
+    gen = torch.Generator().manual_seed(6)
+    if shared:
+        p["shared_ada_lin"]["b"].normal_(0, 0.3, generator=gen)
+        p["blocks"]["ada_gss"].normal_(0, 0.3, generator=gen)
+    else:
+        p["blocks"]["ada_lin_b"].normal_(0, 0.3, generator=gen)
     q = init_vqvae_params(qc, seed=4, device="cpu", eini=1.0)
     if quant:
         p = quantize_var_params(p, mode=quant)
@@ -4008,6 +4035,554 @@ def phase_native_loader(name):
     return {"built": built, "run_training": True}
 
 
+# ---------------------------------------------------------------------------
+# the thirteenth slice: high-resolution generation (VAR-d36 512px with
+# shared AdaLN, the 1024px preset at the d16 width) through bench_512's and
+# bench_1024's run(), the presets' small stacks against the CPU, the
+# stacked cache past 2^31 elements, kernel rows 1-6 at the new shapes
+# ---------------------------------------------------------------------------
+
+D36_512 = VARConfig(depth=36, patch_nums=PATCH_NUMS_512, shared_aln=True)
+D16_1024 = VARConfig(depth=16, patch_nums=PATCH_NUMS_1024)
+HIGHRES_MODES = ("bf16", "w8a8-int8kv")
+
+
+def highres_per_decode(cfg: VARConfig) -> dict:
+    """Kernel launches per decode of each mode, from depth x scales: one
+    attention a layer and scale; with W8A8 weights four act-quants a layer
+    and scale (the qkv, proj and fc1 inputs, the fused fc2 input) and the
+    int8 head once a scale; one sampler a scale."""
+    n, S = cfg.depth * cfg.num_scales, cfg.num_scales
+    w8a8 = dict(act_quantize=4 * n, int8_matmul=S, sampler=S)
+    return {"bf16": dict(attention=n, sampler=S),
+            "w8a8": dict(attention=n, **w8a8),
+            "w8a8-int8kv": dict(attention_int8=n, **w8a8)}
+
+
+def _highres_phase(tag, cfg, run, batch, hw):
+    """One configuration through its tool's ``run()`` (counts set to 0
+    just before, read just after): the launch counts against depth x
+    scales times the decodes each mode ran, plus one conv3x3_s8 a
+    quantized site and all-int8 pixel-decoder call; seed 2 twice the same
+    ids and seed 3 others; every image finite, in [0, 1], (batch, 3, hw,
+    hw); the ``generate_images`` image, where the tool made one, within
+    1e-6 of the golden decoder's on the same seed's latent."""
+    _reset_counts()
+    t0 = time.time()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _read_counts()
+    per = highres_per_decode(cfg)
+    want = {}
+    for mode in HIGHRES_MODES:
+        for k, n in per[mode].items():
+            want[k] = want.get(k, 0) + n * out[mode]["decodes"]
+        int8 = out[mode]["pixels"].get("nhwc-int8")
+        if int8 is not None:
+            want["conv3x3_s8"] = (want.get("conv3x3_s8", 0)
+                                  + int8["sites_quantized"] * int8["calls"])
+    want = _want(**want)
+    decodes = {m: out[m]["decodes"] for m in HIGHRES_MODES}
+    log(f"[{tag}] kernel launches over {decodes} decodes and the pixel "
+        f"decodes: {counts} (want {want}); per decode {per}")
+    if counts != want:
+        raise AssertionError(f"[{tag}] launch counts {counts} != {want}")
+    rows = {}
+    for mode in HIGHRES_MODES:
+        row = out[mode]
+        if not row["same_seed_ids_equal"] or not row["other_seed_ids_differ"]:
+            raise AssertionError(f"[{tag}] {mode}: the same seed must give "
+                                 f"the same ids, another seed other ids")
+        for pname, pix in row["pixels"].items():
+            img = pix["image"]
+            ok = (tuple(img.shape) == (batch, 3, hw, hw)
+                  and bool(torch.isfinite(img).all())
+                  and img.min().item() >= 0 and img.max().item() <= 1)
+            if not ok:
+                raise AssertionError(f"[{tag}] {mode} {pname}: bad images "
+                                     f"{tuple(img.shape)}")
+        entry = ""
+        if row["image"] is not None:
+            d = (row["image"] - row["pixels"]["f32"]["image"]).abs().max().item()
+            entry = (f"; generate_images(seed 2) against the golden decode of "
+                     f"the seed-2 latent: max|d| {d:.2e} (bit-equal "
+                     f"{row['entry_equals_f32']})")
+            if d > 1e-6:
+                raise AssertionError(f"[{tag}] {mode}: generate_images differs "
+                                     f"from the same seed's decode")
+        rows[mode] = {
+            "decodes": row["decodes"], "ms": row["ms"],
+            "img_per_s": row["img_per_s"], "times_ms": row["times_ms"],
+            "first_s": row["first_s"], "peak_gib": row["peak_gib"],
+            "launches_per_decode": per[mode],
+            "other_seed_ids_differ": row["other_seed_ids_differ"],
+            "pixels": {k: {kk: v for kk, v in p.items() if kk != "image"}
+                       for k, p in row["pixels"].items()}}
+        log(f"[{tag}] {mode}: seed 2 twice identical ids, seed 3 "
+            f"{row['other_seed_ids_differ']:.3f} of ids differ; images finite, "
+            f"in [0, 1], ({batch}, 3, {hw}, {hw}){entry}")
+    del out
+    torch.cuda.empty_cache()
+    return {"modes": rows, "launches": counts, "wall_s": wall}
+
+
+def phase_d36_512(name):
+    """Path A: VAR-d36 512px with shared AdaLN at B=4, bf16 and W8A8 +
+    INT8 KV, through ``bench_512.run`` (``generate_images``, the latent
+    decodes, the golden, channels-last bf16 and calibrated all-int8 pixel
+    decoders at 512px)."""
+    log(f"[d36-512] {name}: bench_512.run(4, {HIGHRES_MODES}, repeats=1)")
+    return _highres_phase("d36-512", D36_512, lambda: bench_512.run(
+        4, HIGHRES_MODES, repeats=1, device=DEV), 4, 512)
+
+
+def phase_d16_1024(name):
+    """Path B: the 1024px preset at the d16 width, B=2, bf16 and W8A8 +
+    INT8 KV, through ``bench_1024.run`` (the latent decodes, the
+    channels-last bf16 pixel decoder at 1024px)."""
+    log(f"[d16-1024] {name}: bench_1024.run(16, 2, {HIGHRES_MODES}, repeats=1)")
+    return _highres_phase("d16-1024", D16_1024, lambda: bench_1024.run(
+        16, 2, HIGHRES_MODES, repeats=1, device=DEV), 2, 1024)
+
+
+def phase_cache_past_2_31(name):
+    """The stacked bf16 cache past 2^31 elements: VAR-d36 512px at B=8 (16
+    CFG rows; K and V each 36 x 16 x 2240 x 2304 elements), one decode with
+    the cache-kernel switch off, then the cache filled with NaN and the
+    same decode with it on: bit-equal f_hat and ids, 360 fused writes
+    (rows 7 and 8 write the layers past the 2^31-th element) and no
+    attention_kernel launch."""
+    vae_cfg = VQVAEConfig(patch_nums=PATCH_NUMS_512)
+    params = init_var_params(D36_512, seed=0, device=DEV, dtype=torch.bfloat16)
+    quant = init_vqvae_params(vae_cfg, seed=1, device=DEV)["quant"]
+    samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
+    labels = torch.arange(8) * 61 % 1000
+    cache = KVCache.create(D36_512, 16, device=DEV)
+    n = cache.k.numel()
+    if n <= 2 ** 31:
+        raise AssertionError(f"[cache 2^31] the cache holds only {n} elements")
+
+    def decode():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        f_hat, ids = decode_all_scales(D36_512, vae_cfg, params, quant, labels,
+                                       9, samp, return_ids=True, cache=cache,
+                                       device=DEV)
+        torch.cuda.synchronize()
+        return f_hat, ids, (time.time() - t0) * 1e3
+
+    decode()  # the unfused path's first call at these shapes
+    f_off, ids_off, off_ms = decode()
+    cache.k.fill_(float("nan"))
+    cache.v.fill_(float("nan"))
+    set_cache_kernel(True)
+    try:
+        decode()
+        cache.k.fill_(float("nan"))
+        cache.v.fill_(float("nan"))
+        _reset_counts()
+        f_on, ids_on, on_ms = decode()
+        counts = _read_counts()
+    finally:
+        set_cache_kernel(False)
+    S, n_att = D36_512.num_scales, D36_512.depth * D36_512.num_scales
+    want = _want(cache_write=n_att, sampler=S)
+    same = torch.equal(f_off, f_on) and torch.equal(ids_off, ids_on)
+    log(f"[cache 2^31] {name}: VAR-d36 512px B=8, K and V {n} elements each "
+        f"({2 * n * 2 / 2 ** 30:.2f} GiB): switch off {off_ms:.1f} ms, on "
+        f"{on_ms:.1f} ms (the cache NaN-filled before it); f_hat and ids "
+        f"bit-equal {same}; launches {counts}")
+    if counts != want:
+        raise AssertionError(f"[cache 2^31] launch counts {counts} != {want}")
+    if not same:
+        raise AssertionError("[cache 2^31] the fused cache write differs from "
+                             "the unfused path past 2^31 elements")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"elements": n, "cache_write": counts["cache_write"],
+            "off_ms": off_ms, "on_ms": on_ms}
+
+
+HIGHRES_SMALL = {"512 shared AdaLN": (PATCH_NUMS_512, True),
+                 "1024": (PATCH_NUMS_1024, False)}
+
+
+@contextlib.contextmanager
+def _plain_on_card():
+    """The quantized forward's kernels swapped for their plain versions on
+    CUDA tensors, for a witness only (never on a gated path): attention
+    (float and INT8 K/V) through ``set_attention_impl("plain")``, the
+    act-quant and the int8 head through their plain functions."""
+    saved = (QOPS.act_quantize, MM.int8_matmul)
+    QOPS.act_quantize, MM.int8_matmul = act_quantize_plain, int8_matmul_plain
+    set_attention_impl("plain")
+    try:
+        yield
+    finally:
+        QOPS.act_quantize, MM.int8_matmul = saved
+        set_attention_impl("auto")
+
+
+def _logit_gaps(want, got):
+    """(share of the tokens whose logits differ by more than 1e-5 of the
+    reference's size, the largest such difference over that size)."""
+    tok = (want - got).abs().amax(-1) / want.abs().max()
+    return (tok > 1e-5).float().mean().item(), tok.max().item()
+
+
+def phase_highres_small_reference():
+    """Each preset's small stack on the card against the CPU plain path,
+    greedy. f32: ids equal, f_hat within 1e-5 of its size. W8A8 + INT8 KV
+    (f32 activations): one cached forward over every scale and a greedy
+    decode. At these lengths (2240 and 9451 tokens) the quantized forward
+    has activations and cached keys whose f32 value lies within the two
+    paths' last-bit differences of an int8 rounding step; each such step
+    moves the logits of its token, and through the cache those of every
+    later token, by up to about 1e-3 of their size (measured at 512: 6.7%
+    of the tokens past 1e-5, the largest 1.55e-3; at 1024: 4.2%, 6.6e-4;
+    the small stack of ``phase_small_reference_quant``, 14 tokens, has no
+    such step). A wrong scale or index moves them by their own size. So:
+    the logits within 5e-3 of their size at every token, the share past
+    1e-5 printed. The witness of that cause: the same forward on the card
+    with every kernel swapped for its plain version (``_plain_on_card``,
+    no launch counted) against the CPU and against the kernels, each
+    share and largest printed (measured at 512: plain on the card vs the
+    CPU 6.6% and 1.55e-3, as the kernels; kernels vs plain on the card
+    0.8% and 1.1e-3); a kernel fault would show as kernels vs plain on
+    the card far beyond plain on the card vs the CPU. A greedy
+    decode parts from the CPU's at the first argmax whose top two lie
+    closer than that, and its later scales differ from there (measured at
+    1024: 99.3% of the ids equal); a broken decode loop agrees on about
+    1/64 of them. So: the ids equal on the first five scales and at 95% of
+    the tokens, the first scale that differs printed."""
+    samp = SamplingConfig(cfg=1.5, top_k=1)
+    for tag, (pns, shared) in HIGHRES_SMALL.items():
+        vc, qc, p0, q0 = _small_stack(pns=pns, shared=shared)
+        out = {}
+        for dev in ("cpu", DEV):
+            p, q = _to(p0, dev), _to(q0, dev)
+            f_hat, ids = decode_all_scales(vc, qc, p, q["quant"], [3, 7], 0,
+                                           samp, torch.float32,
+                                           return_ids=True, device=dev)
+            out[dev] = (f_hat.cpu(), ids.cpu())
+        same = torch.equal(out["cpu"][1], out[DEV][1])
+        rel = ((out["cpu"][0] - out[DEV][0]).abs().max()
+               / out["cpu"][0].abs().max()).item()
+        log(f"[reference {tag}] small stack ({vc.num_scales} scales, L="
+            f"{vc.L}) f32 greedy, card vs CPU plain path: ids equal {same}, "
+            f"f_hat max|d| / max|ref| {rel:.2e} (limit 1e-5)")
+        if not same or rel > 1e-5:
+            raise AssertionError(f"[reference {tag}] the card disagrees with "
+                                 f"the CPU reference")
+
+        vc, qc, p, q = _small_stack("w8a8", pns, shared)
+        xs, cond = _small_inputs(vc)
+        out = {}
+        for dev in ("cpu", DEV):
+            pd, qd = _to(p, dev), _to(q, dev)
+            logits, _ = _small_forward(vc, pd, dev, xs, cond)
+            ids = decode_all_scales(vc, qc, pd, qd["quant"], [3, 7], 0, samp,
+                                    torch.float32, return_ids=True,
+                                    kv_mode="int8", device=dev)[1]
+            out[dev] = (logits.view(-1, vc.vocab_size), ids.cpu())
+        before = _read_counts()
+        with _plain_on_card():
+            lp = _small_forward(vc, _to(p, DEV), DEV, xs, cond)[0]
+        if _read_counts() != before:
+            raise AssertionError("the plain witness launched a kernel")
+        lc, lg = out["cpu"][0], out[DEV][0]
+        lp = lp.view(-1, vc.vocab_size)
+        far, rel = _logit_gaps(lc, lg)
+        wit = {"plain on the card vs CPU": _logit_gaps(lc, lp),
+               "kernels vs plain on the card": _logit_gaps(lp, lg)}
+        ic, ig = out["cpu"][1], out[DEV][1]
+        head = vc.begin_ends[4][1]
+        head_same = torch.equal(ic[:, :head], ig[:, :head])
+        frac = (ic == ig).float().mean().item()
+        parted = [si for si, (bg, ed) in enumerate(vc.begin_ends)
+                  if not torch.equal(ic[:, bg:ed], ig[:, bg:ed])]
+        log(f"[reference {tag}] quantized small stack (w8a8, int8 KV, f32), "
+            f"card vs CPU plain path: tokens whose logits differ by more than "
+            f"1e-5 of their size {far:.2e}, largest {rel:.2e} (limit 5e-3); "
+            + "; ".join(f"{k} {f:.2e}, largest {r:.2e}"
+                        for k, (f, r) in wit.items())
+            + f"; greedy ids equal on the first five scales {head_same}, at "
+            f"{frac:.5f} of the tokens (need 0.95), first scale that differs "
+            f"{parted[0] if parted else None}")
+        if rel > 5e-3 or not head_same or frac < 0.95:
+            raise AssertionError(f"[reference {tag}] the quantized card path "
+                                 f"disagrees with the CPU reference")
+
+
+def _att_bytes(Bq, Lq, Lk, H, kv_dtype):
+    """(bound bytes, K/V bytes one launch stages) of rows 1 and 2."""
+    plan = attention_plan(Bq, Lq, Lk, H, 64, torch.bfloat16, kv_dtype)
+    if kv_dtype == torch.int8:
+        nbytes = 2 * H * 64 * Bq * 2 * Lq + H * 64 * Bq * 2 * Lk + 2 * Bq * Lk * 4
+    else:
+        nbytes = 2 * H * 64 * Bq * (2 * Lq + 2 * Lk)
+    return nbytes, plan["kv_bytes_staged"]
+
+
+# (tag, 2B, Lq, Lk, H): the last scale of each high-resolution decode
+HIGHRES_ATT = (("512 scale 9", 8, 1024, 2240, 36),
+               ("1024 scale 13", 4, 4096, 9451, 16))
+
+
+def phase_highres_kernel_times(per_decode, conv_sites):
+    """Rows 1-6 at the high-resolution decodes' largest shapes, each held
+    against its plain version there (rows 2-6 with the tolerances of the
+    256px checks; row 1, whose outputs have a spread of about
+    1/sqrt(0.78 Lk) here, within one bf16 step at the largest output,
+    2^-7 of it, both being bf16, and the plain version without the last
+    ring tile of keys must fall outside that limit) and timed with CUDA events after warm-up, beside its bound and the
+    library call; ``per_decode``: {config: highres_per_decode(cfg)},
+    ``conv_sites``: the 512px all-int8 decoder's quantized sites. Returns
+    {row name: {shape: figures}}."""
+    g = torch.Generator(device=DEV).manual_seed(13)
+    sdpa = F.scaled_dot_product_attention
+    out = {k: {} for k in ("attention", "attention_int8", "sampler",
+                           "act_quantize", "int8_matmul", "conv3x3_s8")}
+    for tag, Bq, Lq, Lk, H in HIGHRES_ATT:
+        cfg = "d36-512" if Lk == D36_512.L else "d16-1024"
+        cache = torch.randn(2, Bq, Lk, H * 64, device=DEV, generator=g)
+        q = (F.normalize(torch.randn(Bq, Lq, H, 64, device=DEV, generator=g),
+                         dim=-1) * 4).to(torch.bfloat16)
+        k = cache[0].view(Bq, Lk, H, 64)
+        k.copy_(F.normalize(k, dim=-1))
+        cache = cache.to(torch.bfloat16)
+        k, v = (cache[i].view(Bq, Lk, H, 64) for i in (0, 1))
+        got = attention_kernel(q, k, v, None, 1.0).float()
+        want = attention_plain(q, k, v, None, 1.0).float()
+        err = (got - want).abs().max().item()
+        lim = 2 ** -7 * want.abs().max().item()
+        full = Lk - (Lk % KEY_TILE or KEY_TILE)
+        drop = (attention_plain(q, k[:, :full], v[:, :full], None, 1.0)
+                .float() - want).abs().max().item()
+        ok = err <= lim
+        del got, want
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = cuda_ms(lambda: attention_kernel(q, k, v, None, 1.0), 10)
+        plain = cuda_ms(lambda: attention_plain(q, k, v, None, 1.0), 1, warmup=1)
+        lib = cuda_ms(lambda: sdpa(qt, kt, vt, scale=1.0), 10)
+        bound, by = attention_bound(Bq, Lq, Lk, H, 64, 2)
+        nbytes, staged = _att_bytes(Bq, Lq, Lk, H, torch.bfloat16)
+        out["attention"][tag] = {
+            "launches_per_decode": per_decode[cfg]["bf16"]["attention"],
+            "max_abs_err": err, "limit": lim, "last_tile_dropped": drop,
+            "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes,
+            "kv_bytes_staged": staged}
+        log(f"[time highres] attention {tag} (2B={Bq} Lq={Lq} Lk={Lk} H={H} "
+            f"hd=64 bf16): max|d| {err:.3e} (limit {lim:.3e}, one bf16 "
+            f"step at the largest output; the plain version without the "
+            f"last {Lk - full} keys, one ring tile, is {drop:.3e} off) "
+            f"{'ok' if ok else 'FAIL'}; "
+            f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+            f"(scaled_dot_product_attention) bound_ms {bound:.4f} ({by}); K/V "
+            f"bytes staged {staged} beside the bound's {nbytes} bytes in all; "
+            f"grid {attention_plan(Bq, Lq, Lk, H, 64, torch.bfloat16, torch.bfloat16)['grid']}")
+        if not ok:
+            raise AssertionError(f"attention kernel disagrees at {tag}")
+        if drop <= lim:
+            raise AssertionError(f"the limit at {tag} cannot see a dropped "
+                                 f"key tile")
+        del cache, k, v, qt, kt, vt
+
+        vals, scales = _int8_cache(Bq, Lk, H * 64, g)
+        q8 = (torch.randn(Bq, Lq, H, 64, device=DEV, generator=g)
+              * 1e-3).to(torch.bfloat16)
+        k8, v8, sc8 = _int8_kv(vals, scales, Lk, H, 64)
+        got = attention_kernel(q8, k8, v8, None, 1.0, kv_scales=sc8).float()
+        want = attention_plain(q8, k8, v8, None, 1.0, kv_scales=sc8).float()
+        err = (got - want).abs().max().item()
+        lim = 2e-2 * want.abs().max().item()
+        del got, want
+        kd, vd = (dequantize_tokens(t.reshape(Bq, Lk, H * 64), s)
+                  .view(Bq, Lk, H, 64).transpose(1, 2)
+                  for t, s in ((k8, sc8[0]), (v8, sc8[1])))
+        q8t = q8.transpose(1, 2)
+        ms = cuda_ms(lambda: attention_kernel(q8, k8, v8, None, 1.0,
+                                              kv_scales=sc8), 10)
+        plain = cuda_ms(lambda: attention_plain(q8, k8, v8, None, 1.0,
+                                                kv_scales=sc8), 1, warmup=1)
+        lib = cuda_ms(lambda: sdpa(q8t, kd, vd, scale=1.0), 10)
+        bound, by = attention_int8_bound(Bq, Lq, Lk, H, 64)
+        nbytes, staged = _att_bytes(Bq, Lq, Lk, H, torch.int8)
+        out["attention_int8"][tag] = {
+            "launches_per_decode":
+                per_decode[cfg]["w8a8-int8kv"]["attention_int8"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes,
+            "kv_bytes_staged": staged}
+        log(f"[time highres] attention_int8 {tag} (2B={Bq} Lq={Lq} Lk={Lk} "
+            f"H={H} hd=64 q bf16, k/v int8): max|d| {err:.3e} (limit "
+            f"{lim:.3e}) {'ok' if err <= lim else 'FAIL'}; kernel_ms {ms:.4f} "
+            f"plain_ms {plain:.4f} library_ms {lib:.4f} (SDPA on k/v "
+            f"dequantised beforehand, untimed) bound_ms {bound:.4f} ({by}); "
+            f"K/V bytes staged {staged} beside the bound's {nbytes}")
+        if err > lim:
+            raise AssertionError(f"INT8-KV attention disagrees at {tag}")
+        del vals, scales, k8, v8, kd, vd
+        torch.cuda.empty_cache()
+
+    # row 3: the 1024 decode's last scale, B=2: 2 x 4096 rows
+    M, V = 8192, 4096
+    logits = torch.randn(M, V, device=DEV, generator=g) * 4
+    noise = -torch.log(-torch.log(
+        torch.rand(M, V, device=DEV, generator=g).clamp_(1e-7, 1 - 1e-7)))
+    seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (M,), device=DEV,
+                          generator=g, dtype=torch.int32)
+    ids, mask = sample_kernel(logits, None, 900, 0.96, noise=noise,
+                              return_mask=True)
+    ids_p, mask_p = sample_plain(logits, None, 900, 0.96, noise=noise,
+                                 return_mask=True)
+    rows_eq = ((mask == mask_p).all(-1) & (ids == ids_p)).float().mean().item()
+    err = (mask.int() - mask_p.int()).abs().max().item()
+    ms = cuda_ms(lambda: sample_kernel(logits, seeds, 900, 0.96), 20)
+    plain = cuda_ms(lambda: sample_plain(logits, seeds, 900, 0.96), 2, warmup=1)
+    n_topk = sample_plain(logits, seeds, 900, 0.0, return_mask=True)[1].sum()
+    bound, by = sampler_bound(M, V, n_topk.item())
+    out["sampler"]["M8192 V4096"] = {
+        "launches_per_decode": {c: per_decode[c]["bf16"]["sampler"]
+                                for c in per_decode},
+        "max_abs_err": err, "rows_equal": rows_eq, "ms": ms,
+        "plain_ms": plain, "library_ms": None, "bound_ms": bound,
+        "bound_by": by}
+    log(f"[time highres] sampler M={M} V={V} top_k=900 top_p=0.96: rows "
+        f"equal with noise {rows_eq:.6f} (need 0.999) "
+        f"{'ok' if rows_eq >= 0.999 else 'FAIL'}; kernel_ms {ms:.4f} "
+        f"plain_ms {plain:.4f} library_ms none bound_ms {bound:.4f} ({by})")
+    if rows_eq < 0.999:
+        raise AssertionError("sampler kernel disagrees at M=8192")
+    del logits, noise, seeds, mask, mask_p
+
+    # row 4: d36's rows at the 512 decode's last scale (2B x 1024 = 8192):
+    # K=2304 (the qkv, proj and fc1 inputs) and the fc2 input K=9216 with
+    # its bias and GELU, bf16; and that fc2 input in f32 (three loads a
+    # thread)
+    C = D36_512.embed_dim
+    for K, gelu, dtype in ((C, False, torch.bfloat16), (4 * C, True, torch.bfloat16),
+                           (4 * C, True, torch.float32)):
+        x = (torch.randn(M, K, device=DEV, generator=g) * 3).to(dtype)
+        bias = (torch.randn(K, device=DEV, generator=g).to(dtype)
+                if gelu else None)
+        q8, s8 = act_quantize_kernel(x, bias, gelu)
+        qp, sp = act_quantize_plain(x, bias, gelu)
+        s_rel = ((s8 - sp).abs() / sp).max().item()
+        d = (q8.int() - qp.int()).abs()
+        frac = (d != 0).float().mean().item()
+        ok = (s_rel <= 1e-6 and d.max().item() <= 1 and frac < 1e-3
+              and (gelu or frac == 0.0))
+        ms = cuda_ms(lambda: act_quantize_kernel(x, bias, gelu), 20)
+        plain = cuda_ms(lambda: act_quantize_plain(x, bias, gelu), 3, warmup=1)
+        bound, by = act_quantize_bound(M, K, gelu, x.element_size())
+        plan = quant_plan(M, K, dtype)
+        tag = f"M{M} K{K} {str(dtype)[6:]}{' gelu' if gelu else ''}"
+        out["act_quantize"][tag] = {
+            "launches_per_decode": {c: per_decode[c]["w8a8-int8kv"]["act_quantize"]
+                                    for c in per_decode},
+            "max_abs_err": float(d.max().item()), "scale_max_rel": s_rel,
+            "ms": ms, "plain_ms": plain, "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "loads_a_thread": plan["nv"]}
+        log(f"[time highres] act_quantize {tag}: scales max rel {s_rel:.3e}, "
+            f"dq != 0 on {frac:.2e} {'ok' if ok else 'FAIL'}; kernel_ms "
+            f"{ms:.4f} plain_ms {plain:.4f} library_ms none bound_ms "
+            f"{bound:.4f} ({by}); {plan['group']} threads a row, {plan['nv']} "
+            f"loads a thread")
+        if not ok:
+            raise AssertionError(f"act_quantize disagrees at {tag}")
+    del x, bias, q8, qp
+
+    # row 5: the d36 head, f32 x (the W8A8 decode's head is weight-only
+    # int8 on an f32 x), 2B x 1024 rows
+    N = D36_512.vocab_size
+    xm = torch.randn(M, C, device=DEV, generator=g)
+    qw = quantize_weight(torch.randn(C, N, device=DEV, generator=g) * 0.02)
+    wd = dequantize_weight(qw, torch.float32)
+    got = int8_matmul_kernel(xm, qw.q, qw.scale)
+    want = int8_matmul_plain(xm, qw.q, qw.scale)
+    err = (got - want).abs().max().item()
+    lim = 1e-5 * want.abs().max().item()
+    ms = cuda_ms(lambda: int8_matmul_kernel(xm, qw.q, qw.scale), 20)
+    plain = cuda_ms(lambda: int8_matmul_plain(xm, qw.q, qw.scale), 3)
+    lib = cuda_ms(lambda: torch.matmul(xm, wd), 20)
+    bound, by = int8_matmul_bound(M, C, N, 4, 4)
+    out["int8_matmul"][f"M{M} K{C} N{N} f32 head"] = {
+        "launches_per_decode": {c: per_decode[c]["w8a8-int8kv"]["int8_matmul"]
+                                for c in per_decode},
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+        "bound_ms": bound, "bound_by": by}
+    log(f"[time highres] int8_matmul d36 head (M={M} K={C} N={N}, f32 x): "
+        f"max|d| {err:.3e} (limit {lim:.3e}) {'ok' if err <= lim else 'FAIL'}; "
+        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+        f"(torch.matmul on the dequantised weight, untimed dequant) bound_ms "
+        f"{bound:.4f} ({by})")
+    if err > lim:
+        raise AssertionError("int8_matmul disagrees at the d36 head")
+    del xm, qw, wd, got, want
+
+    # row 6: the 512px pixel decoder's top level at B=4
+    shape = (4, 512, 512, 160, 160)
+    Bc, Hc, Wc, Cc, Oc = shape
+    x8 = torch.randint(-127, 128, (Bc, Hc, Wc, Cc), device=DEV, generator=g,
+                       dtype=torch.int8)
+    wk = torch.randint(-127, 128, (Oc, 3, 3, Cc), device=DEV, generator=g,
+                       dtype=torch.int8)
+    scale = torch.rand(Oc, device=DEV, generator=g) * 2e-3
+    bias = torch.randn(Oc, device=DEV, generator=g)
+    got = conv3x3_s8_kernel(x8, wk, scale, bias)
+    want = conv3x3_s8_plain(x8, wk, scale, bias)
+    same = torch.equal(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    ms = cuda_ms(lambda: conv3x3_s8_kernel(x8, wk, scale, bias), 10)
+    plain = cuda_ms(lambda: conv3x3_s8_plain(x8, wk, scale, bias), 1, warmup=1)
+    xb = torch.randn(Bc, Cc, Hc, Wc, device=DEV, generator=g).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    wb = torch.randn(Oc, Cc, 3, 3, device=DEV, generator=g).to(
+        dtype=torch.bfloat16, memory_format=torch.channels_last)
+    c_ms = cuda_ms(lambda: F.conv2d(xb, wb, bias.to(torch.bfloat16), padding=1), 10)
+    bound, by = conv3x3_s8_bound(*shape, 2)
+    plan = conv_plan(*shape)
+    out["conv3x3_s8"]["512px top level B=4"] = {
+        "launches_per_pixel_decode": conv_sites,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": None,
+        "bf16_conv_ms": c_ms, "bound_ms": bound, "bound_by": by}
+    log(f"[time highres] conv3x3_s8 (B,H,W,C,O)={shape} ({plan['path']} path, "
+        f"grid {plan.get('grid')}): bit-equal {same} {'ok' if same else 'FAIL'}; "
+        f"kernel_ms {ms:.4f} plain_ms {plain:.4f} library_ms none bound_ms "
+        f"{bound:.4f} ({by}); bf16_conv_ms {c_ms:.4f} (F.conv2d, cuDNN, the "
+        f"conv the site replaces)")
+    if not same:
+        raise AssertionError("conv3x3_s8 disagrees at the 512px top level")
+    del x8, wk, xb, wb
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_highres(name):
+    """The thirteenth slice's phases, after the card is freed of the
+    earlier phases' models and caches."""
+    _free_card("before the high-resolution phases")
+    t0 = time.time()
+    res = {"d36-512": phase_d36_512(name)}
+    _free_card("after d36-512")
+    res["d16-1024"] = phase_d16_1024(name)
+    _free_card("after d16-1024")
+    res["cache 2^31"] = phase_cache_past_2_31(name)
+    phase_highres_small_reference()
+    per = {"d36-512": highres_per_decode(D36_512),
+           "d16-1024": highres_per_decode(D16_1024)}
+    sites = (res["d36-512"]["modes"]["bf16"]["pixels"]["nhwc-int8"]
+             ["sites_quantized"])
+    with full_f32():
+        res["times"] = phase_highres_kernel_times(per, sites)
+    log(f"[highres] phases took {time.time() - t0:.1f} s")
+    return res
+
+
 MESH_ROWS = ("attention", "sampler", "attention_int8", "act_quantize",
              "int8_matmul")
 
@@ -4025,6 +4600,10 @@ def main() -> int:
         return train_mesh_rank_main(sys.argv[2])
     t_start = time.time()
     name = phase_device_and_build()
+    if get_attention_impl() != "auto":  # before any launch gate
+        raise AssertionError(f"attention impl {get_attention_impl()!r} at "
+                             f"start, not the default 'auto'")
+    log("[attention impl] 'auto' (the default): the kernels on the card")
     with full_f32():  # the plain f32 versions' products, as the kernels'
         errs, smp = phase_kernel_checks()
         errs.update(phase_quant_kernel_checks())
@@ -4062,6 +4641,7 @@ def main() -> int:
     phase_vae_train(name)
     phase_native_loader(name)
     log(f"[vae train, native loader] phases took {time.time() - t_train:.1f} s")
+    highres = phase_highres(name)
     phase_mesh_replicated()
     t_mesh = time.time()
     reps = phase_mesh(name)
@@ -4094,6 +4674,9 @@ def main() -> int:
                             "L680": train_att[680],
                             "L424": train_att[TRAIN_PREFIX],
                             "smoke_f32_hd32": smoke}
+    for row in kernels:  # rows 1-6 at the high-resolution shapes
+        if row["name"] in highres["times"]:
+            row["highres"] = highres["times"][row["name"]]
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

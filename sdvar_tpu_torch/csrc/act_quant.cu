@@ -41,7 +41,7 @@
 //
 // Design. A row is held by a group of G threads (a power of two from 32 to
 // 1024, from the launch plan ops/kernels/quantize.py:quant_plan), each
-// with NV = 1 or 2 16-byte loads of it in registers (8 bf16 or 4 f32
+// with NV = 1 to 3 16-byte loads of it in registers (8 bf16 or 4 f32
 // elements; one element a load when K is not a multiple of that), strided
 // by the group so that a warp's loads are contiguous: many threads with
 // few loads each keep the chains of dependent arithmetic short, and a
@@ -356,6 +356,7 @@ cudaError_t launch(int nv, const void* x, const void* bias, int bias_bf16,
   switch (nv) {
     case 1: return launch_nv<XT, VW, 1>(x, bias, bias_bf16, q, s, M, K, xs, gelu, mode, group, threads, grid, st);
     case 2: return launch_nv<XT, VW, 2>(x, bias, bias_bf16, q, s, M, K, xs, gelu, mode, group, threads, grid, st);
+    case 3: return launch_nv<XT, VW, 3>(x, bias, bias_bf16, q, s, M, K, xs, gelu, mode, group, threads, grid, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -366,7 +367,7 @@ cudaError_t launch(int nv, const void* x, const void* bias, int bias_bf16,
 // float32 (x_dtype 0) or bfloat16 (1); bias: (K,) float32 (bias_dtype 0)
 // or bfloat16 (1), or null; q: contiguous int8 (M, K) (unused in mode 1);
 // s: (M,) float32, written (modes 0, 1) or read (mode 2). group (32 ..
-// 1024 threads a row, a power of two), nv (1 or 2 loads a thread), vector
+// 1024 threads a row, a power of two), nv (1 to 3 loads a thread), vector
 // (1: 16-byte loads, the caller guarantees K a multiple of 16 / itemsize
 // and 16-byte aligned x rows and bias; 0: one element a load), threads
 // (128 .. 1024 a block, a multiple of group) and grid (blocks, at most one
@@ -382,7 +383,7 @@ extern "C" int sdvar_act_quantize(const void* x, const void* bias, void* q,
       (bias_dtype != 0 && bias_dtype != 1) || mode < 0 || mode > 2 ||
       group < 32 || group > 1024 || (group & (group - 1)) ||
       threads < 128 || threads > 1024 || threads % group ||
-      (nv != 1 && nv != 2) || (ll)group * nv * vw < K || (vector && K % vw))
+      nv < 1 || nv > 3 || (ll)group * nv * vw < K || (vector && K % vw))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bb = bias_dtype == 1;

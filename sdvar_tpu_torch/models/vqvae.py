@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from sdvar_tpu_torch.config import VQVAEConfig
 from sdvar_tpu_torch.models import quantizer as Q
 from sdvar_tpu_torch.ops import conv_s8 as CS8
-from sdvar_tpu_torch.utils.device import full_f32, resolve_device
+from sdvar_tpu_torch.utils.device import full_f32, resolve_device, tf32
 
 Params = Dict
 
@@ -421,13 +421,31 @@ def _to_image(y: torch.Tensor) -> torch.Tensor:
     return y.float().clamp(-1.0, 1.0).contiguous()
 
 
+PRECISIONS = ("highest", "high")
+
+
 @torch.inference_mode()
 def fhat_to_img_nhwc(cfg: VQVAEConfig, p: Params, f_hat: torch.Tensor,
-                     dtype=torch.bfloat16) -> torch.Tensor:
-    """Channels-last pixel decode, bf16 (the serving decoder) or f32 with
-    TF32 off (the JAX package's "highest"); f_hat (B, Cvae, HW, HW) ->
-    image in [-1, 1], f32 NCHW."""
+                     dtype=torch.bfloat16,
+                     precision: str = "highest") -> torch.Tensor:
+    """Channels-last pixel decode, bf16 (the serving decoder) or f32;
+    f_hat (B, Cvae, HW, HW) -> image in [-1, 1], f32 NCHW.
+
+    ``precision`` (f32 only; a bf16 decode ignores it): "highest" runs the
+    f32 convolutions and matmuls with TF32 off, the error class of the JAX
+    package's "highest"; "high" lets cuDNN and cuBLAS take the card's
+    reduced-precision f32 path, TF32 (10-bit mantissa products, about 1e-3
+    relative error). That is not the error class of the JAX package's
+    "high", XLA's three-pass bf16 emulation (about 1e-6 relative): cuDNN
+    has no such mode. ``tools/bench_pixels.py`` prints the mean |delta|
+    each choice gives. On the CPU both are full f32."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"fhat_to_img_nhwc: precision {precision!r} "
+                         f"({' | '.join(PRECISIONS)})")
     if dtype == torch.float32:
+        if precision == "high":
+            with tf32():
+                return _to_image(_decode_nhwc(cfg, p, f_hat, dtype))
         with full_f32():
             return _to_image(_decode_nhwc(cfg, p, f_hat, dtype))
     if dtype != torch.bfloat16:

@@ -2,8 +2,14 @@
 tensors to their plain PyTorch versions.
 
 The JAX package picks between XLA and Pallas by backend and query size
-(a VMEM/grid tuning gate); the port has one kernel for every size, so the
-only choice left is the device the tensors lie on.
+(a VMEM/grid tuning gate); the port has one kernel for every size, so by
+default (``"auto"``) the only choice left is the device the tensors lie
+on. ``set_attention_impl`` (the JAX package's switch of
+``sdvar_tpu/ops/attention.py:22-28``) lets a caller name the backend of
+every attention call below instead: ``"plain"``, the plain PyTorch
+version on either device (the counterpart of the JAX package's ``"xla"``
+einsum path), or ``"kernel"``, the CUDA kernels (which raise on CPU
+tensors). The setting changes only when a caller sets it.
 
 The cache-kernel switch (``set_cache_kernel``, the JAX package's switch of
 ``sdvar_tpu/ops/attention.py:31-50``, off by default as there) routes every
@@ -40,6 +46,30 @@ from sdvar_tpu_torch.ops.kernels.attention import (
     attention_plain,
 )
 
+IMPLS = ("auto", "plain", "kernel")
+_IMPL = "auto"
+
+
+def set_attention_impl(impl: str) -> None:
+    """Choose the backend of every attention call: one of ``IMPLS``."""
+    global _IMPL
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r} "
+                         f"({' | '.join(IMPLS)})")
+    _IMPL = impl
+
+
+def get_attention_impl() -> str:
+    return _IMPL
+
+
+def _kernel_for(q: torch.Tensor) -> bool:
+    """Whether this call launches the kernel (else the plain version)."""
+    if _IMPL == "auto":
+        return q.device.type != "cpu"
+    return _IMPL == "kernel"
+
+
 _CACHE_KERNEL = False
 
 
@@ -65,9 +95,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (kv_scales is None and not kv_token_major and torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return AttentionFn.apply(q, k, v, bias, scale)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, bias, scale, kv_token_major, kv_scales)
-    return attention_kernel(q, k, v, bias, scale, kv_token_major, kv_scales)
+    fn = attention_kernel if _kernel_for(q) else attention_plain
+    return fn(q, k, v, bias, scale, kv_token_major, kv_scales)
 
 
 _BWD_CHUNK_THRESHOLD = 1_500_000  # Lq * Lk above which the backward chunks
@@ -154,9 +183,8 @@ class AttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, scale):
         ctx.scale = scale
         ctx.save_for_backward(q, k, v, bias)
-        if q.device.type == "cpu":
-            return attention_plain(q, k, v, bias, scale)
-        return attention_kernel(q, k, v, bias, scale)
+        fn = attention_kernel if _kernel_for(q) else attention_plain
+        return fn(q, k, v, bias, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -182,7 +210,7 @@ def attention_cache(q, cache_k, cache_v, li: int, kv_len: int,
     """Attention over keys [0, kv_len) of layer ``li`` of the stacked cache
     (depth, B, L_max, H*hd), read in place; ``cache_scales``: the
     (depth, B, L_max) scale planes of an int8 cache."""
-    fn = attention_cache_plain if q.device.type == "cpu" else attention_cache_kernel
+    fn = attention_cache_kernel if _kernel_for(q) else attention_cache_plain
     return fn(q, cache_k, cache_v, li, kv_len, bias, scale, cache_scales)
 
 
@@ -193,7 +221,7 @@ def attention_cache_write(q, k_new, v_new, cache_k, cache_v, li: int,
     """Write k_new/v_new (B, Lq, H, hd) into layer ``li`` of the cache at
     [cache_begin, kv_len) (int8 rows with their (B, Lq) ``new_scales``),
     then attend over [0, kv_len); kv_len must be cache_begin + Lq."""
-    fn = (attention_cache_write_plain if q.device.type == "cpu"
-          else attention_cache_write_kernel)
+    fn = (attention_cache_write_kernel if _kernel_for(q)
+          else attention_cache_write_plain)
     return fn(q, k_new, v_new, cache_k, cache_v, li, cache_begin, kv_len,
               bias, scale, new_scales, cache_scales)

@@ -81,6 +81,7 @@ def act_scale_plain(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MIN_GROUP, MAX_GROUP = 32, 1024  # threads that hold a row
+MAX_LOADS = 3  # 16-byte loads of a row a thread holds in registers
 VECTOR_BYTES = 16
 SMS = 132                # streaming multiprocessors of an H100 SXM
 THREADS_PER_SM = 2048
@@ -97,15 +98,17 @@ def quant_plan(M: int, K: int, x_dtype: torch.dtype, vector: bool = True
     elements of ``x_dtype``: ``vec`` elements a load (16 bytes' worth, or 1
     when ``vector`` is false), a row held by ``group`` threads (a power of
     two from 32 to 1024: the fewest that hold the row in at most two loads
-    a thread; in one load a thread where M rows of them are at most
-    ``LATENCY_BOUND_THREADS``), ``nv`` loads a thread (1 or 2), blocks of
+    a thread, and 1024 for a row of more than 2048 loads; in one load a
+    thread where M rows of them are at most ``LATENCY_BOUND_THREADS``),
+    ``nv`` loads a thread (1 to ``MAX_LOADS``; three only past 2048 loads,
+    as VAR-d36's fc2 input of 9216 f32), blocks of
     ``threads``
     (128, or the group when larger) holding ``rows_per_block`` rows at a
     time, and ``grid`` blocks: one for each ``rows_per_block`` rows, at
     most as many as the card holds at once (2048 threads an SM), each
     walking its rows ``grid`` blocks apart. Raises ValueError with the
     wrapper's message for a row the kernel cannot hold in registers (more
-    than 2048 loads)."""
+    than 3072 loads)."""
     if x_dtype not in _DTYPES:
         raise ValueError(f"act_quantize_kernel: x must be float32 or "
                          f"bfloat16, got {x_dtype}")
@@ -116,17 +119,18 @@ def quant_plan(M: int, K: int, x_dtype: torch.dtype, vector: bool = True
         raise ValueError(f"act_quantize_kernel: K={K} is not a multiple of "
                          f"the {vec}-element vector")
     nvec = K // vec
-    if nvec > 2 * MAX_GROUP:
+    if nvec > MAX_LOADS * MAX_GROUP:
         raise ValueError(f"act_quantize_kernel: K={K} exceeds the "
-                         f"{2 * MAX_GROUP * vec} elements a row group holds "
+                         f"{MAX_LOADS * MAX_GROUP * vec} elements a row group holds "
                          f"in registers"
                          f"{'' if vector else ' one element a load'}")
     whole = max(MIN_GROUP, 1 << max(nvec - 1, 0).bit_length())
     if whole <= MAX_GROUP and M * whole <= LATENCY_BOUND_THREADS:
         group, nv = whole, 1  # few rows: the shortest chain a thread
     else:
-        group = max(MIN_GROUP, 1 << max(-(-nvec // 2) - 1, 0).bit_length())
-        nv = 1 if group >= nvec else 2
+        group = min(MAX_GROUP, max(
+            MIN_GROUP, 1 << max(-(-nvec // 2) - 1, 0).bit_length()))
+        nv = -(-nvec // group)
     threads = max(128, group)
     rows = threads // group
     return {"vec": vec, "group": group, "nv": nv, "threads": threads,

@@ -17,6 +17,7 @@ import torch
 from sdvar_tpu_torch.ops.kernels.quantize import (
     LATENCY_BOUND_THREADS,
     MAX_GROUP,
+    MAX_LOADS,
     MIN_GROUP,
     SMS,
     THREADS_PER_SM,
@@ -60,6 +61,26 @@ def test_quant_plan_geometry(M, K, dtype):
     assert grid == min(-(-M // rows), SMS * (THREADS_PER_SM // threads))
 
 
+D36_CASES = [(M, K, dt) for M in (8, 8 * 32 * 32, 4 * 64 * 64)
+             for K in (2304, 9216, 12288) for dt in (BF16, F32)]
+
+
+@pytest.mark.parametrize("M,K,dtype", D36_CASES,
+                         ids=[f"M{m}-K{k}-{str(d)[6:]}" for m, k, d in D36_CASES])
+def test_quant_plan_wide_rows(M, K, dtype):
+    """VAR-d36's rows (K = 2304 and its fc2 input of 9216) and the widest
+    the kernel takes in f32 (12288): past 2048 loads the row is held by
+    1024 threads of three loads each, as the JAX package quantizes a row
+    of any width."""
+    plan = quant_plan(M, K, dtype)
+    vec, group, nv = plan["vec"], plan["group"], plan["nv"]
+    nvec = K // vec
+    assert group * nv * vec >= K and 1 <= nv <= MAX_LOADS
+    assert nv == 3 or nvec <= 2 * MAX_GROUP
+    if nvec > 2 * MAX_GROUP:
+        assert group == MAX_GROUP
+
+
 @pytest.mark.parametrize("dtype", [BF16, F32])
 def test_quant_plan_one_element_loads(dtype):
     """K not a multiple of the 16-byte vector takes one element a load."""
@@ -72,7 +93,7 @@ def test_quant_plan_one_element_loads(dtype):
 @pytest.mark.parametrize("M,K,dtype,vector,match", [
     (8, 7680, BF16, False, "exceeds"),   # 7680 one-element loads
     (8, 16384, F32, True, "exceeds"),    # 4096 loads of 4 f32
-    (8, 20000, BF16, True, "exceeds"),
+    (8, 32768, BF16, True, "exceeds"),   # 4096 loads of 8 bf16
     (0, 1920, BF16, True, "no launch"),
     (8, 1920, torch.float16, True, "float32 or"),
 ])

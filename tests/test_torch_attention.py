@@ -21,6 +21,7 @@ from sdvar_tpu_torch.ops.attention import (
     attention_cache,
     attention_cache_write,
 )
+from sdvar_tpu_torch.ops.kernels.attention import KEY_TILE, attention_plain
 
 B, H, HD = 2, 2, 64  # H*hd a multiple of 128, so the Pallas kernel really runs
 
@@ -137,6 +138,30 @@ def test_int8_kv_equals_dequantised_float_attention():
                     kv_scales=(torch.from_numpy(ks), torch.from_numpy(vs)))
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("Lk", [1216, 2240, 5355, 9451])
+def test_highres_row1_limit_sees_a_dropped_key_tile(Lk):
+    """The card's high-resolution check of kernel row 1 (``chip_smoke.py``
+    and ``test_torch_highres_kernels.py``: unit keys, q four times a unit
+    vector, bf16) holds the kernel within one bf16 step at the largest
+    output, 2^-7 of it. At the 512px and 1024px key lengths the plain
+    version without the last ring tile of keys (Lk mod 64 keys, or 64)
+    falls outside that limit, on a few heads and query rows."""
+    rng = np.random.default_rng(Lk)
+
+    def unit(*shape):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return torch.nn.functional.normalize(x, dim=-1)
+
+    q = (unit(1, 64, 4, 64) * 4).to(torch.bfloat16)
+    k = unit(1, Lk, 4, 64).to(torch.bfloat16)
+    v = torch.from_numpy(rng.standard_normal((1, Lk, 4, 64))
+                         .astype(np.float32)).to(torch.bfloat16)
+    want = attention_plain(q, k, v, None, 1.0).float()
+    full = Lk - (Lk % KEY_TILE or KEY_TILE)
+    drop = attention_plain(q, k[:, :full], v[:, :full], None, 1.0).float()
+    assert (drop - want).abs().max() > 2 ** -7 * want.abs().max()
 
 
 DEPTH, LMAX, LI = 3, 48, 1

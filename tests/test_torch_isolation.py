@@ -60,6 +60,13 @@ def test_import_leaves_jax_out():
         "import sdvar_tpu_torch.utils.torch_port, sdvar_tpu_torch.ops.kernels.w8a8_fused;"
         "import sdvar_tpu_torch.tools.bench_serving;"
         "import sdvar_tpu_torch.tools.microbench_int8_matmul;"
+        "import sdvar_tpu_torch.tools.bench_512, sdvar_tpu_torch.tools.bench_1024;"
+        "import sdvar_tpu_torch.tools.bench_attention_impl;"
+        "import sdvar_tpu_torch.tools.bench_quant, sdvar_tpu_torch.tools.bench_pixels;"
+        "import sdvar_tpu_torch.tools.bench_latency;"
+        "import sdvar_tpu_torch.tools.ab_cache_write;"
+        "import sdvar_tpu_torch.tools.microbench_matmul;"
+        "import sdvar_tpu_torch.tools.retest_negatives;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sdvar_tpu')];"
         "assert not bad, bad"
@@ -132,13 +139,26 @@ def test_speculative_engine_raises_without_a_card(monkeypatch):
 
 def test_measuring_entry_points_raise_without_a_card(monkeypatch):
     """The bench, the FID sampler, the benchmark CLI's engine, the serving
-    bench and the microbenchmark ask for the card by default and raise
-    without one; none of them drops to the CPU on its own."""
+    bench, the microbenchmarks and the decode measuring tools ask for the
+    card by default and raise without one; none of them drops to the CPU
+    on its own."""
     import numpy as np
 
     from sdvar_tpu_torch import bench, benchmark_cli, sample_fid
     from sdvar_tpu_torch.config import SamplingConfig, VARConfig, VQVAEConfig
-    from sdvar_tpu_torch.tools import bench_serving, microbench_int8_matmul
+    from sdvar_tpu_torch.tools import (
+        ab_cache_write,
+        bench_512,
+        bench_1024,
+        bench_attention_impl,
+        bench_latency,
+        bench_pixels,
+        bench_quant,
+        bench_serving,
+        microbench_int8_matmul,
+        microbench_matmul,
+        retest_negatives,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = VARConfig(depth=1, patch_nums=(1, 2), vocab_size=64, Cvae=8,
@@ -152,6 +172,15 @@ def test_measuring_entry_points_raise_without_a_card(monkeypatch):
             ["--depth-draft", "1", "--depth-target", "1"])),
         lambda: bench_serving.run(1, 1, 1, "bf16"),
         lambda: microbench_int8_matmul.run(),
+        lambda: bench_512.run(),
+        lambda: bench_1024.run(),
+        lambda: bench_attention_impl.run("auto"),
+        lambda: bench_quant.run(),
+        lambda: bench_pixels.run(),
+        lambda: bench_latency.run(),
+        lambda: ab_cache_write.run(),
+        lambda: microbench_matmul.run(),
+        lambda: retest_negatives.run(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
