@@ -27,7 +27,7 @@ training shape with the gradient through it, a small ``train_step``
 against the CPU, VAR-d16 256px at global batch 32 through
 ``run_training`` and timed ``train_step``s (remat, a progressive stage,
 gradient accumulation, the bf16 tokenizer, the checkpoint read back),
-``train_loop --smoke`` as a subprocess, one step's spans; VAR-d16 at
+``train_loop --smoke`` as a subprocess, one step's spans; VAR-d8 at
 global batch 32 through ``run_training`` on a 2x1 and a 1x2 mesh of two
 ranks sharing the card (gloo), against the single card, with each mesh's
 checkpoint loaded on one card, and a small f32 stack on both meshes; the
@@ -41,7 +41,14 @@ decoders at 512px) and the 1024px preset at the d16 width at B=2
 presets' small stacks against the CPU, a d36-512 B=8 decode whose stacked
 cache passes 2^31 elements with the cache-kernel switch on (bit-equal to
 off) and kernel rows 1-6 at the new shapes; and four ranks sharing the
-card with a stack whose heads do not divide the mesh. It checks the outputs and
+card with a stack whose heads do not divide the mesh. The training tools
+run through their ``run()`` after the VQVAE trainer: ``convert_checkpoint``
+(a VAR-d16 reference state_dict, read back bit-equal), ``pretokenize``
+(ids equal to the trainer's tokenize), ``bench_train``, ``profile_train``
+(32 row-1 launches in a remat step), ``adjudicate_mfu``, ``calib_pixels``
+(row 6 at every quantized site) and ``train_pair`` (a cut dataset: both
+roles, a sweep, and the drill: a run SIGKILLed mid-epoch and resumed, its
+epoch-2 checkpoint bit-equal to the uninterrupted run's). It checks the outputs and
 the kernel launch counts of each path, holds small stacks on the card against
 the CPU plain path, times the three pixel decoders and the kernels (the
 act-quant, conv, sampler and fused W8A8 kernels also replayed in CUDA
@@ -190,12 +197,21 @@ from sdvar_tpu_torch.train import trainer as TR
 from sdvar_tpu_torch.train import vae_trainer as VT
 from sdvar_tpu_torch.train.data import SyntheticImageNet, batch_arrays
 from sdvar_tpu_torch.tools import (
+    adjudicate_mfu,
     bench_512,
     bench_1024,
     bench_serving,
+    bench_train,
+    calib_pixels,
+    convert_checkpoint,
     microbench_int8_matmul,
+    pretokenize,
     probe_mesh_placement,
+    profile_train,
+    train_pair,
 )
+from sdvar_tpu_torch.train.pretokenize import TokenDataset
+from sdvar_tpu_torch.utils.torch_port import var_params_from_torch
 from sdvar_tpu_torch.utils.device import full_f32
 from sdvar_tpu_torch.utils.fid import create_npz_from_arrays
 from sdvar_tpu_torch.utils.profiling import (
@@ -2862,10 +2878,9 @@ def _mesh_run_small(rep, arrs):
 
 def _mesh_run_d30(rep, arrs, tag, mcfg):
     """VAR-d30 B=16 on a mesh (``_mesh_var``'s weights), bf16 then W8A8 +
-    INT8 KV: one timed run of one decode after a warm-up that must give
-    the same ids (one timed run, not three, to keep the whole script
-    inside its time budget); counts set to 0 just before the timed
-    run and read just after it (per rank)."""
+    INT8 KV: one timed decode, its first on the mesh (no warm-up and no
+    repeat, to keep the whole script inside its time budget); counts set
+    to 0 just before it and read just after it (per rank)."""
     var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
     samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
     quant = init_vqvae_params(vae_cfg, seed=1, device=DEV, eini=1.0)["quant"]
@@ -2878,7 +2893,6 @@ def _mesh_run_d30(rep, arrs, tag, mcfg):
         del full
         torch.cuda.empty_cache()
         kv = "bf16" if mode == "bf16" else "int8"
-        warm = _mesh_decode_ids(var_cfg, vae_cfg, params, quant, samp, kv)
         # act-quant: qkv and fc1 once a layer, proj and fc2 twice when the
         # model is split (the scale-only pass, then the quantizing pass
         # with the row's all-reduced scale)
@@ -2892,9 +2906,6 @@ def _mesh_run_d30(rep, arrs, tag, mcfg):
         torch.cuda.synchronize()
         lat = [(time.time() - t0) * 1e3]
         launches = _read_counts()
-        if not torch.equal(warm, ids):
-            raise AssertionError(f"[mesh] d30 {tag} {mode}: the same decode "
-                                 f"gave other ids than its warm-up")
         key = f"d30 {tag} {mode}"
         rep[key] = {"launches": launches, "latent_ms": lat,
                     "rows_per_rank": B // mcfg.data,
@@ -3605,9 +3616,13 @@ def _to(tree, dev):
 TRAIN_MESHES = {"2x1": MeshConfig(data=2, model=1),
                 "1x2": MeshConfig(data=1, model=2)}
 TRAIN_MESH_TIMEOUT = 900.0
+# d8, not d16, to keep the whole run inside half its time limit (gloo
+# through host memory makes a mesh step cost seconds, in proportion to
+# depth)
+TRAIN_MESH_DEPTH = 8
 TRAIN_SEED = 2  # the generator of the one batch's training draws
 TRAIN_LR, TRAIN_WD = 1e-4, 0.05
-# The d16 mesh's gates against one card, relative: step 1's loss and grad
+# The mesh's gates against one card, relative: step 1's loss and grad
 # norm, and step 3's loss (after two AdamW updates). Step 1's read 0 and
 # 1.96e-07 on an H100 (NVIDIA H100 80GB HBM3, 700 W); 1e-4 leaves room for
 # the bf16 partial products the ranks sum in another order. A replicated
@@ -3625,10 +3640,10 @@ def _train_batch():
     return torch.from_numpy(img_np).to(dev), torch.from_numpy(lab_np).to(dev)
 
 
-def _fresh_d16(mesh=None):
-    """The d16 train state ``run_training`` starts from (seed 0), whole or
+def _fresh_mesh_state(mesh=None):
+    """The VAR-d8 train state ``run_training`` starts from (seed 0), whole or
     this rank's shard of it."""
-    tc = TrainConfig(depth=TRAIN_DEPTH, global_batch_size=TRAIN_B, epochs=1)
+    tc = TrainConfig(depth=TRAIN_MESH_DEPTH, global_batch_size=TRAIN_B, epochs=1)
     vae_cfg, var_cfg, vae, state = TL.build_everything(tc, seed=0, device=DEV,
                                                        mesh=mesh)
     return tc, vae_cfg, var_cfg, vae, state
@@ -3670,7 +3685,7 @@ def _train_mesh_run(tag, mcfg, out_dir, ref):
     last 2 timed with their spans; the launches of every step; the
     digests of the leaves this rank holds whole."""
     rank = DIST.get_rank()
-    tc = TrainConfig(depth=TRAIN_DEPTH, global_batch_size=TRAIN_B, epochs=1)
+    tc = TrainConfig(depth=TRAIN_MESH_DEPTH, global_batch_size=TRAIN_B, epochs=1)
     _free_card(f"train mesh {tag} rank {rank}, before")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -3678,7 +3693,7 @@ def _train_mesh_run(tag, mcfg, out_dir, ref):
                                   max_iters=3, batch_override=TRAIN_B,
                                   mesh_cfg=mcfg, device=DEV)
     wall = time.time() - t0
-    var_cfg = VARConfig(depth=TRAIN_DEPTH)
+    var_cfg = VARConfig(depth=TRAIN_MESH_DEPTH)
     mesh = create_mesh(mcfg)
     whole = unshard_tree(state.params, var_param_specs(var_cfg, mesh), mesh)
     ckpt_digests = _digests(whole) if rank == 0 else {}
@@ -3688,7 +3703,7 @@ def _train_mesh_run(tag, mcfg, out_dir, ref):
                f"{run_peak:.2f} GiB)")
     set_tp_mesh(mesh)
     try:
-        tc, vae_cfg, var_cfg, vae, state = _fresh_d16(mesh)
+        tc, vae_cfg, var_cfg, vae, state = _fresh_mesh_state(mesh)
         img, label = _train_batch()
         rows = mesh.rows(TRAIN_B)
         gen = torch.Generator(device=torch.device(DEV)).manual_seed(TRAIN_SEED)
@@ -3719,7 +3734,7 @@ def _train_mesh_run(tag, mcfg, out_dir, ref):
     d_loss = abs(losses[0] - ref["losses"][0]) / abs(ref["losses"][0])
     d_norm = abs(gnorms[0] - ref["grad_norms"][0]) / abs(ref["grad_norms"][0])
     d_last = abs(losses[-1] - ref["losses"][-1]) / abs(ref["losses"][-1])
-    launches_ok = all(c == _want(attention=TRAIN_DEPTH) for c in counts)
+    launches_ok = all(c == _want(attention=TRAIN_MESH_DEPTH) for c in counts)
     falls = losses[-1] < losses[0]
     ok = (max(d_loss, d_norm, d_last) <= TRAIN_MESH_RTOL and launches_ok
           and falls and all(math.isfinite(x) for x in losses + gnorms))
@@ -3739,7 +3754,7 @@ def _train_mesh_run(tag, mcfg, out_dir, ref):
         f"{', '.join(f'{x:.1f}' for x in ms)} ms (best of the last 2 "
         f"{best:.1f} ms, {TRAIN_B / best * 1e3:.2f} img/s); peak memory "
         f"{peak:.2f} GiB; attention launches a step "
-        f"{[c['attention'] for c in counts]} (want {TRAIN_DEPTH}, no other "
+        f"{[c['attention'] for c in counts]} (want {TRAIN_MESH_DEPTH}, no other "
         f"kernel) {'ok' if ok else 'FAIL'}")
     log(f"[train mesh {tag}] rank {rank}: spans, mean ms a step: "
         f"{_spans_line(spans)}")
@@ -3836,8 +3851,9 @@ def train_mesh_rank_main(out_dir: str) -> int:
 
 
 def phase_train_mesh(name):
-    """VAR-d16 at full width, 256px, global batch 32, bf16 forward, f32
-    tokenize, AdamW, on a 2x1 (data) and a 1x2 (model: heads, FFN hidden,
+    """VAR-d8 (C=512; cut from d16 for the time budget), 256px,
+    global batch 32, bf16 forward, f32 tokenize, AdamW, on a 2x1 (data)
+    and a 1x2 (model: heads, FFN hidden,
     6C and vocab split) mesh of two ranks that share the card through gloo
     (``parallel.launch``; NCCL refuses two ranks on one card). Here,
     before: the single-card steps 1-3 of the fresh state on the one batch
@@ -3846,7 +3862,7 @@ def phase_train_mesh(name):
     f32 stack. After: the gates, and each mesh's checkpoint loaded on one
     card, bit-equal to the gathered parameters. Returns the ranks'
     reports."""
-    tc, vae_cfg, var_cfg, vae, state = _fresh_d16()
+    tc, vae_cfg, var_cfg, vae, state = _fresh_mesh_state()
     img, label = _train_batch()
     gen = torch.Generator(device=torch.device(DEV)).manual_seed(TRAIN_SEED)
     ref = {"losses": [], "grad_norms": []}
@@ -3858,7 +3874,7 @@ def phase_train_mesh(name):
         ref["grad_norms"].append(float(m["grad_norm"]))
     del state, vae, img, m
     _free_card("train mesh parent, before the ranks")
-    log(f"[train mesh] one card, the fresh d16 state's 3 steps on the one "
+    log(f"[train mesh] one card, the fresh d{TRAIN_MESH_DEPTH} state's 3 steps on the one "
         f"batch: losses {', '.join(f'{x:.6f}' for x in ref['losses'])}, grad "
         f"norms {', '.join(f'{x:.6f}' for x in ref['grad_norms'])}")
     with tempfile.TemporaryDirectory() as out:
@@ -3881,7 +3897,7 @@ def phase_train_mesh(name):
         log(f"[train mesh] {MESH_WORLD} ranks on cuda:0 (gloo through host "
             f"memory; NCCL across cards has never run) in {wall:.1f} s, each "
             f"exited 0")
-        template = _fresh_d16()[4]
+        template = _fresh_mesh_state()[4]
         for tag in TRAIN_MESHES:
             a, b = (rep[tag]["replicated_digests"] for rep in reps)
             same = a == b and len(a) > 0
@@ -4583,6 +4599,240 @@ def phase_highres(name):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the fourteenth slice: the training tools, through their run()
+# ---------------------------------------------------------------------------
+
+def _reference_var_state_dict(cfg: VARConfig, p) -> dict:
+    """The reference VAR state_dict of the port tree ``p`` (nn.Linear
+    weights (out, in), per-layer tensors unstacked), on the CPU."""
+    C, H = cfg.embed_dim, cfg.num_heads
+    sd = {"word_embed.weight": p["word_embed"]["w"].T,
+          "word_embed.bias": p["word_embed"]["b"],
+          "class_emb.weight": p["class_emb"],
+          "pos_start": p["pos_start"].reshape(1, cfg.first_l, C),
+          "pos_1LC": p["pos_1LC"].reshape(1, cfg.L, C),
+          "lvl_embed.weight": p["lvl_embed"],
+          "head_nm.ada_lin.1.weight": p["head_nm"]["w"].T,
+          "head_nm.ada_lin.1.bias": p["head_nm"]["b"],
+          "head.weight": p["head"]["w"].T, "head.bias": p["head"]["b"]}
+    b = p["blocks"]
+    for i in range(cfg.depth):
+        pre = f"blocks.{i}."
+        sd.update({pre + "attn.mat_qkv.weight": b["qkv_w"][i].T,
+                   pre + "attn.q_bias": b["q_bias"][i],
+                   pre + "attn.v_bias": b["v_bias"][i],
+                   pre + "attn.proj.weight": b["proj_w"][i].T,
+                   pre + "attn.proj.bias": b["proj_b"][i],
+                   pre + "ffn.fc1.weight": b["fc1_w"][i].T,
+                   pre + "ffn.fc1.bias": b["fc1_b"][i],
+                   pre + "ffn.fc2.weight": b["fc2_w"][i].T,
+                   pre + "ffn.fc2.bias": b["fc2_b"][i],
+                   pre + "attn.scale_mul_1H11": b["scale_mul"][i].reshape(1, H, 1, 1),
+                   pre + "ada_lin.1.weight": b["ada_lin_w"][i].T,
+                   pre + "ada_lin.1.bias": b["ada_lin_b"][i]})
+    return {k: v.detach().cpu().contiguous().clone() for k, v in sd.items()}
+
+
+def phase_convert(name):
+    """``convert_checkpoint.run`` on a VAR-d16 state_dict with random
+    weights in the reference's key layout, wrapped as a training
+    checkpoint: the port checkpoint it writes, read with a template of
+    ``init_var_params`` on the card, bit-equal to ``var_params_from_torch``
+    of the same state_dict."""
+    cfg = VARConfig(depth=TRAIN_DEPTH)
+    sd = _reference_var_state_dict(cfg, init_var_params(cfg, seed=21, device=DEV))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "var_d16.pth")
+        torch.save({"trainer": {"var_wo_ddp": sd}}, path)
+        t0 = time.time()
+        res = convert_checkpoint.run(os.path.join(d, "out"), var=path,
+                                     depth=TRAIN_DEPTH)
+        wall = time.time() - t0
+        got, meta = CK.load_checkpoint(res["var"], init_var_params(cfg, seed=0,
+                                                                   device=DEV))
+    want = var_params_from_torch(cfg, sd, device=DEV)
+    pairs = list(zip(TR.tree_leaves(got), TR.tree_leaves(want)))
+    same = all(pa == pb and torch.equal(a, b) for (pa, a), (pb, b) in pairs)
+    ok = same and meta["kind"] == "var" and meta["depth"] == TRAIN_DEPTH
+    log(f"[convert] d16 reference state_dict ({len(sd)} tensors, trainer "
+        f"wrapper) -> ckpt-00000000 in {wall:.1f} s; read back on {name}: "
+        f"{len(pairs)} leaves bit-equal to var_params_from_torch {same}, meta "
+        f"{meta} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[convert] the converted checkpoint differs")
+
+
+def phase_pretokenize(name):
+    """``pretokenize.run`` on 64 synthetic 256px images, one pass, on the
+    card: ``TokenDataset`` reads back ids equal to ``train.trainer.tokenize``
+    of the same images (the f32 encoder, the same seeded VQVAE)."""
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        m = pretokenize.run(d, passes=1, synthetic_len=64, seed=0)
+        wall = time.time() - t0
+        ds = TokenDataset(d)
+        got = torch.from_numpy(np.stack([ds[i][0] for i in range(len(ds))]))
+    img, _ = batch_arrays(SyntheticImageNet(reso=256, length=64, seed=0),
+                          list(range(64)))
+    vae = init_vqvae_params(VQVAEConfig(), seed=0, device=DEV)
+    img = torch.from_numpy(img).to(DEV)
+    want = torch.cat([TR.tokenize(VARConfig(), VQVAEConfig(), vae,
+                                  img[i:i + 32])[1] for i in (0, 32)]).cpu()
+    same = torch.equal(got.long(), want.long())
+    log(f"[pretokenize] 64 images x 1 pass -> {m['num_shards']} shard, L="
+        f"{m['L']}, in {wall:.1f} s on {name}; TokenDataset ids equal to "
+        f"train.trainer.tokenize's: {same}")
+    if not same or got.shape != (64, 680):
+        raise AssertionError("[pretokenize] the stored ids differ")
+
+
+def phase_bench_train(name):
+    """``bench_train``'s step (f32 tokenize and the token path), varonly
+    and tokenize (f32 and channels-last bf16) at VAR-d16 B=32: ms/step,
+    img/s, MFU against 989 TFLOP/s and the allocator's peak."""
+    res = {}
+    for tag, argv in (("step", ["step", "16", "32", "3"]),
+                      ("step tokens", ["step", "16", "32", "3", "tokens"]),
+                      ("varonly", ["varonly", "16", "32"]),
+                      ("tokenize f32", ["tokenize", "32"]),
+                      ("tokenize nhwc", ["tokenize", "32", "nhwc"])):
+        _free_card(f"bench_train {tag}, before")
+        r = bench_train.run(argv)
+        ok = r["ms"] > 0 and math.isfinite(r["ms"]) and all(
+            math.isfinite(x) for x in r.get("losses", [r.get("loss", 0.0)]))
+        res[tag] = {k: r[k] for k in ("ms", "img_per_s", "mfu", "peak_gib")
+                    if k in r}
+        log(f"[bench_train] {tag}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in res[tag].items()) + f" on {name} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[bench_train] {tag}")
+    return res
+
+
+def phase_profile_train(name):
+    """``profile_train.run(16, 32)``: one remat step on the token path
+    under torch.profiler; kernel row 1 launched 32 times in it (16 layers,
+    each forward run again in the backward)."""
+    _free_card("profile_train, before")
+    r = profile_train.run(TRAIN_DEPTH, TRAIN_B)
+    want = 2 * TRAIN_DEPTH
+    ok = r["attention_launches"] == want and r["total_ms"] > 0
+    log(f"[profile_train] d16 B=32 remat step {r['step_ms']:.1f} ms; profiled: "
+        f"device {r['total_ms']:.1f} ms, busy share {r['busy_share']:.3f}; "
+        f"categories " + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+            r["categories"].items(), key=lambda kv: -kv[1]))
+        + f"; attention backward {r['attention_backward_ms']:.1f} ms; "
+        f"{r['attention_launches']} row-1 launches (want {want}) on {name} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[profile_train] row-1 launches or device time")
+    return {k: r[k] for k in ("step_ms", "total_ms", "busy_share", "categories",
+                              "attention_backward_ms", "attention_launches")}
+
+
+def phase_adjudicate_mfu(name):
+    """``adjudicate_mfu.run(16, 32, iters=2)``: the token-path step, the
+    five GEMM shapes in their three passes, row 1's forward and the
+    Function's forward + backward, the residual and the verdict."""
+    _free_card("adjudicate_mfu, before")
+    r = adjudicate_mfu.run(TRAIN_DEPTH, TRAIN_B, iters=2)
+    ok = all(math.isfinite(r[k]) and r[k] > 0 for k in (
+        "step_ms", "mfu", "gemm_floor_ms", "attn_est_ms", "attn_fwd_bwd_ms"))
+    log(f"[adjudicate_mfu] step {r['step_ms']:.1f} ms, MFU {r['mfu']:.4f}, GEMM "
+        f"floor {r['gemm_floor_ms']:.1f} ms at {r['gemm_tflops']:.0f} TFLOP/s, "
+        f"attention 3 x forward {r['attn_est_ms']:.1f} ms / measured "
+        f"{r['attn_fwd_bwd_ms']:.1f} ms on {name} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[adjudicate_mfu] a figure is not finite")
+    return {k: r[k] for k in ("step_ms", "mfu", "gemm_floor_ms", "gemm_tflops",
+                              "attn_est_ms", "attn_fwd_bwd_ms", "residual_ms")}
+
+
+def phase_calib_pixels(name):
+    """``calib_pixels.run(train_vae=5, cal_batches=2, iters=2)``: kernel
+    row 6 at every eligible site of the dynamic W8A8 decode and at every
+    quantized site of each calibrated one, a finite verdict."""
+    _free_card("calib_pixels, before")
+    r = calib_pixels.run(train_vae=5, cal_batches=2, iters=2)
+    rows = r["rows"]
+    per = {k: v["conv_launches"] for k, v in rows.items()}
+    bad = [k for k, v in rows.items() if k.startswith("calib")
+           and v["conv_launches"] != v["sites_quantized"]]
+    ok = (per["w8a8_dynamic"] == r["sites"] and per["nhwc_bf16"] == 0
+          and not bad and math.isfinite(r["best_err"])
+          and math.isfinite(r["bf16_err"]))
+    log(f"[calib_pixels] {r['sites']} eligible sites; conv3x3_s8 launches per "
+        f"decode {per}; verdict {r['verdict']} (best {r['best_err']:.5f} vs "
+        f"bf16 {r['bf16_err']:.5f}) on {name} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[calib_pixels] row-6 launches {per} (sites "
+                             f"{r['sites']}), or a non-finite verdict")
+    return {"sites": r["sites"], "launches_per_decode": per,
+            "verdict": r["verdict"]}
+
+
+def phase_train_pair(name):
+    """``train_pair`` with its geometry cut (4 classes of 32 images, 4
+    held out, one pass): prep, the d8 target and the d4 draft 24 iterations
+    each at batch 16, a sweep (the target-only decode, both per-scale
+    profiles, gamma 2 at threshold 0.5: kernel rows 1 and 3), then the
+    drill: a control run to 2.5 epochs, the same run SIGKILLed mid-epoch 2
+    and relaunched, its epoch-2 checkpoint bit-equal to the control's."""
+    _free_card("train_pair, before")
+    with tempfile.TemporaryDirectory() as work:
+        geo = ["--work", work, "--classes", "4", "--per-class", "32",
+               "--per-class-val", "4"]
+        t0 = time.time()
+        train_pair.run(geo + ["prep", "--passes", "1"])
+        fit = {role: train_pair.run(geo + ["train", "--role", role, "--bs", "16",
+                                           "--max-iters", "24"])
+               for role in ("target", "draft")}
+        t_train = time.time() - t0
+        _reset_counts()
+        rows = train_pair.run(geo + ["sweep", "--gammas", "2", "--thresholds",
+                                     "0.5", "--iters", "1"])
+        counts = _read_counts()
+        t0 = time.time()
+        drill = train_pair.run(geo + ["drill", "--bs", "16"])
+        t_drill = time.time() - t0
+    profiles = [r["match_rates"] for r in rows if r["kind"].startswith("profile")]
+    sweep = [r for r in rows if r["kind"] == "sweep"]
+    ok = (len(sweep) == 1 and sweep[0]["target_calls"] > 0
+          and counts["attention"] > 0 and counts["sampler"] > 0
+          and all(0.0 <= x <= 1.0 for p in profiles for x in p)
+          and all(math.isfinite(f["loss_last"]) for f in fit.values()))
+    log(f"[train_pair] prep + target/draft 24 iterations each in {t_train:.1f} "
+        f"s (" + ", ".join(f"{k} {v['ms_per_step']:.0f} ms/step" for k, v in
+                           fit.items())
+        + f"); sweep: profiles {profiles}, row {json.dumps(sweep[0])}, "
+        f"launches attention {counts['attention']} sampler {counts['sampler']}; "
+        f"drill ({t_drill:.1f} s): killed at it {drill['killed_at']}, resumed "
+        f"from step {drill['resumed_from']}, {drill['leaves']} leaves bit-equal "
+        f"at step {drill['step']} on {name} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[train_pair] the sweep or the training")
+    return {"sweep_launches": {k: counts[k] for k in ("attention", "sampler")},
+            "drill": drill}
+
+
+def phase_training_tools(name):
+    """The fourteenth slice's phases, in the order the tools were ported."""
+    res = {}
+    for tag, fn in (("convert", phase_convert), ("pretokenize", phase_pretokenize),
+                    ("bench_train", phase_bench_train),
+                    ("profile_train", phase_profile_train),
+                    ("adjudicate_mfu", phase_adjudicate_mfu),
+                    ("calib_pixels", phase_calib_pixels),
+                    ("train_pair", phase_train_pair)):
+        t0 = time.time()
+        res[tag] = fn(name)
+        log(f"[training tools] {tag} took {time.time() - t0:.1f} s")
+    _free_card("after the training tools")
+    return res
+
+
 MESH_ROWS = ("attention", "sampler", "attention_int8", "act_quantize",
              "int8_matmul")
 
@@ -4641,6 +4891,9 @@ def main() -> int:
     phase_vae_train(name)
     phase_native_loader(name)
     log(f"[vae train, native loader] phases took {time.time() - t_train:.1f} s")
+    t_tools = time.time()
+    tools = phase_training_tools(name)
+    log(f"[training tools] phases took {time.time() - t_tools:.1f} s")
     highres = phase_highres(name)
     phase_mesh_replicated()
     t_mesh = time.time()
@@ -4674,6 +4927,18 @@ def main() -> int:
                             "L680": train_att[680],
                             "L424": train_att[TRAIN_PREFIX],
                             "smoke_f32_hd32": smoke}
+    for row in kernels:  # launches of the training tools' runs
+        if row["name"] == "attention":
+            row["tools"] = {
+                "profile_train_remat_step":
+                    tools["profile_train"]["attention_launches"],
+                "train_pair_sweep": tools["train_pair"]["sweep_launches"]["attention"]}
+        if row["name"] == "sampler":
+            row["tools"] = {"train_pair_sweep":
+                            tools["train_pair"]["sweep_launches"]["sampler"]}
+        if row["name"] == "conv3x3_s8":
+            row["tools"] = {"calib_pixels_per_decode":
+                            tools["calib_pixels"]["launches_per_decode"]}
     for row in kernels:  # rows 1-6 at the high-resolution shapes
         if row["name"] in highres["times"]:
             row["highres"] = highres["times"][row["name"]]

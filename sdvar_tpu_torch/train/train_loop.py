@@ -5,7 +5,9 @@ a checkpoint at each ``saln_every``-th epoch end and where ``max_iters``
 stops the run, resumes from the newest checkpoint of ``out``, and has a
 ``--smoke`` mode (two steps of a tiny model on random images and a
 checkpoint round trip) that needs no data. On the card unless
-``--device cpu``.
+``--device cpu``. Step ``g_it``'s training draws (cond drop, drop path)
+come from ``train.trainer.step_generator(seed, g_it)``, so a run stopped
+and resumed is, bit for bit, the run that went straight through.
 
 On a (data, model) mesh of processes (``mesh_cfg``, ``--mesh-data`` /
 ``--mesh-model``; the process group joined first, under ``torchrun`` or
@@ -55,6 +57,7 @@ from sdvar_tpu_torch.train.trainer import (
     eval_step,
     init_train_state,
     shard_train_state,
+    step_generator,
     train_state_specs,
     train_step,
     tree_leaves,
@@ -224,7 +227,6 @@ def _run(tc, data_root, out_dir, seed, max_iters, batch_override, dtype,
     sampler.epoch = g_it // iters_per_ep
     sampler.start_it = g_it % iters_per_ep
 
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
     it_stream = iter(sampler)
     t0 = time.time()
     S = len(var_cfg.patch_nums)
@@ -274,7 +276,8 @@ def _run(tc, data_root, out_dir, seed, max_iters, batch_override, dtype,
             state, metrics = train_step(
                 var_cfg, vae_cfg, state, vae_params,
                 torch.from_numpy(np.asarray(img)).to(dev),
-                torch.from_numpy(np.asarray(label)).to(dev), lr, wd, gen,
+                torch.from_numpy(np.asarray(label)).to(dev), lr, wd,
+                step_generator(seed, g_it, dev),
                 clip=tc.grad_clip, label_smooth=tc.label_smooth,
                 grad_accum=tc.grad_accum, dtype=dtype, prog_si=prog_si,
                 prog_wp=prog_wp, remat=tc.remat,
@@ -334,9 +337,9 @@ def smoke_test(device="cuda") -> bool:
     label = torch.tensor([1, 2], device=dev)
     losses = []
     for i in range(2):
-        gen = torch.Generator(device=dev).manual_seed(i)
         state, metrics = train_step(var_cfg, vae_cfg, state, vae_params, img,
-                                    label, 1e-4, 0.05, gen, label_smooth=0.0,
+                                    label, 1e-4, 0.05, step_generator(0, i, dev),
+                                    label_smooth=0.0,
                                     dtype=torch.float32)
         losses.append(float(metrics["loss"]))
     if not all(np.isfinite(losses)):

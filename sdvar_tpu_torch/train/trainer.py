@@ -367,6 +367,17 @@ def apply_optimizer(params: Dict, grads: Dict, opt_state: Dict,
     return tree_map(step, params, u, mask), opt_state
 
 
+def step_generator(seed: int, g_it: int, device) -> torch.Generator:
+    """The generator of step ``g_it``'s training draws in a run seeded
+    ``seed``: seeded from (seed + 1, g_it) alone, the port's counterpart
+    of ``jax.random.fold_in(PRNGKey(seed + 1), g_it)``. A resumed run
+    therefore replays the draws of the run it continues, and every rank
+    of a mesh holds the same generator (the draws of the whole batch, cut
+    per rank in ``models.var``)."""
+    state = np.random.SeedSequence([seed + 1, g_it]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]) >> 1)
+
+
 def init_train_state(var_params: Dict, optimizer: str = "adamw") -> TrainState:
     return TrainState(params=var_params,
                       opt_state=init_opt_state(var_params, optimizer), step=0)

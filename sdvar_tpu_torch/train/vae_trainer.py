@@ -7,9 +7,10 @@ One step: encode the images, ``models.quantizer.vq_train_forward``
 codebook losses), decode, an L2 reconstruction loss, then plain SGD on
 every parameter; the hits go into the EMA tracker
 (``update_vocab_hit_ema``) and give ``vocab_usage_per_scale``. Where a
-mesh is registered (``ops.partition.set_tp_mesh``) the hits are summed
-over "data" first; the parameters are whole on every rank, as the JAX
-module uses them on one device. SGD only, no perceptual or GAN loss: the
+mesh is registered (``ops.partition.set_tp_mesh``) each rank steps on its
+rows of the batch: the gradients and losses are averaged over "data" and
+the hits summed, so the parameters, whole on every rank, stay equal
+across the ranks and take the step of the whole batch. SGD only, no perceptual or GAN loss: the
 module keeps the VAE-training surface exercised, it is not a VQVAE recipe.
 """
 
@@ -23,7 +24,7 @@ import torch
 from sdvar_tpu_torch.config import VQVAEConfig
 from sdvar_tpu_torch.models import quantizer as Q
 from sdvar_tpu_torch.models import vqvae as VQ
-from sdvar_tpu_torch.ops.partition import data_count, reduce_data
+from sdvar_tpu_torch.ops.partition import data_count, mean_over_data, reduce_data
 from sdvar_tpu_torch.train.trainer import tree_leaves, tree_map
 
 
@@ -57,12 +58,21 @@ def vae_train_step(cfg: VQVAEConfig, state: VAETrainState, img: torch.Tensor,
                    lr: float) -> Tuple[VAETrainState, Dict]:
     """One SGD step, ``p - lr * g`` on every parameter, and the EMA
     codebook-hit update. Returns the new state (new tensors) and the
-    metrics: loss, rec_loss, vq_loss and usage_per_scale (SN,) in %."""
+    metrics: loss, rec_loss, vq_loss and usage_per_scale (SN,) in %. On a
+    mesh ``img`` is this rank's rows: the gradients and the three losses
+    are averaged over "data" (the global batch's mean, as the JAX step
+    computes it on the whole batch) and the hits summed, so every rank
+    takes the same step."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(), state.params)
     flat = [t for _, t in tree_leaves(leaves)]
     loss, (hits_SV, metrics) = vae_loss(cfg, leaves, img)
-    grads = iter(torch.autograd.grad(loss, flat, allow_unused=True,
-                                     materialize_grads=True))
+    grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                materialize_grads=True)
+    losses = torch.stack([loss.detach(), metrics["rec_loss"].detach(),
+                          metrics["vq_loss"].detach()])
+    if data_count() > 1:
+        *grads, losses = mean_over_data(list(grads) + [losses])
+    grads = iter(grads)
     lr_t = torch.tensor(lr, dtype=torch.float32)
     params = tree_map(lambda p: p - lr_t.to(p.device) * next(grads),
                       state.params)
@@ -71,6 +81,6 @@ def vae_train_step(cfg: VQVAEConfig, state: VAETrainState, img: torch.Tensor,
     B, H = img.shape[0], cfg.patch_nums[-1]
     usage = Q.vocab_usage_per_scale(cfg, ema, batch_tokens=B * H * H,
                                     world_size=data_count())
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics.update(loss=loss.detach(), usage_per_scale=usage)
+    metrics = {"loss": losses[0], "rec_loss": losses[1], "vq_loss": losses[2],
+               "usage_per_scale": usage}
     return VAETrainState(params, ema, state.step + 1), metrics

@@ -67,6 +67,10 @@ def test_import_leaves_jax_out():
         "import sdvar_tpu_torch.tools.ab_cache_write;"
         "import sdvar_tpu_torch.tools.microbench_matmul;"
         "import sdvar_tpu_torch.tools.retest_negatives;"
+        "import sdvar_tpu_torch.tools.convert_checkpoint, sdvar_tpu_torch.tools.pretokenize;"
+        "import sdvar_tpu_torch.tools.bench_train, sdvar_tpu_torch.tools.profile_train;"
+        "import sdvar_tpu_torch.tools.adjudicate_mfu, sdvar_tpu_torch.tools.calib_pixels;"
+        "import sdvar_tpu_torch.tools.train_pair, sdvar_tpu_torch.tools.probe_train_determinism;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sdvar_tpu')];"
         "assert not bad, bad"

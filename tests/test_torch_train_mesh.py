@@ -25,7 +25,11 @@ process holds them against references:
     tolerances; the factored optimizer (a width of 128, so that leaves
     factor, and a split axis is reduced) the same way against the port on
     one process (which ``test_torch_trainer.py`` holds against JAX);
-  - ``vae_train_step`` on 2x1: the hits summed over "data";
+  - ``vae_train_step`` on 2x1, two steps: the hits summed over "data"
+    and the gradients averaged, so the parameters stay equal across the
+    ranks and equal to one process's on the whole batch;
+  - on 2x1, ``run_training`` stopped at step 2 and resumed to step 4
+    bit-equal to the run straight to step 4;
   - an indivisible width under training: 6 heads at model=4 (the heads'
     layers whole on every rank, the other widths split);
   - the checkpoint a mesh run wrote loaded on one process equal bit for
@@ -75,6 +79,8 @@ JAX_KW = dict(depth=2, num_classes=10, patch_nums=PNS, vocab_size=64, Cvae=8,
               cond_drop_rate=0.0, drop_path_rate=0.0)
 LR, WD = 1e-4, 0.05
 MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2), "1x4": (1, 4)}
+VAE_STEPS = 2
+VAE_LOSSES = ("loss", "rec_loss", "vq_loss")
 
 
 def _var_kw(name: str) -> dict:
@@ -100,6 +106,8 @@ def _jobs():
     jobs.append((2, {"name": "tokens_2x1", "kind": "run", "mesh": "2x1",
                      "cfg": "tiny", "tokens": True}))
     jobs.append((2, {"name": "vae_2x1", "kind": "vae", "mesh": "2x1"}))
+    jobs.append((2, {"name": "stop_resume_2x1", "kind": "stop_resume",
+                     "mesh": "2x1", "cfg": "tiny"}))
     jobs += [(4, {"name": "run_2x2", "kind": "run", "mesh": "2x2",
                   "cfg": "tiny"}),
              (4, {"name": "run_six_1x4", "kind": "run", "mesh": "1x4",
@@ -177,6 +185,29 @@ def _rank_run(job, out_dir):
     return res
 
 
+def _rank_stop_resume(job, out_dir):
+    """run_training straight to step 4, and to step 2 then resumed to 4
+    in another directory: the whole trees of both."""
+    data, model = MESHES[job["mesh"]]
+    var_cfg, vae_cfg = VARConfig(**_var_kw(job["cfg"])), VQVAEConfig(**VAE_KW)
+    tc = TrainConfig(depth=var_cfg.depth, **TC)
+    mesh = MS.create_mesh(MeshConfig(data=data, model=model))
+    res = {}
+    for tag, stops in (("straight", (4,)), ("resumed", (2, 4))):
+        for iters in stops:
+            state, hist = TL.run_training(
+                tc, out_dir=os.path.join(out_dir, f"{job['name']}_{tag}"),
+                max_iters=iters, dtype=F32,
+                mesh_cfg=MeshConfig(data=data, model=model), var_cfg=var_cfg,
+                vae_cfg=vae_cfg, device="cpu")
+        specs = T.train_state_specs(state.params, var_cfg, mesh)
+        whole = MS.unshard_tree(_state_tree(state), {
+            k: specs[k] for k in ("params", "opt_state")}, mesh)
+        res.update({f"{tag}{k}": v for k, v in _flat(whole).items()})
+        res[f"{tag}_it"] = np.array([h["it"] for h in hist])
+    return res
+
+
 def _vae():
     return init_vqvae_params(VQVAEConfig(**VAE_KW), seed=0, device="cpu",
                              eini=1.0)
@@ -236,20 +267,28 @@ def _rank_jax(job, inp):
 
 
 def _rank_vae(job, inp):
-    """One vae_train_step on this rank's rows with the mesh registered:
-    the hits are summed over "data"."""
+    """Two vae_train_steps on this rank's rows with the mesh registered:
+    the hits are summed and the gradients and losses averaged over
+    "data"."""
     from sdvar_tpu_torch.train import vae_trainer as VT
 
     mesh = MS.create_mesh(MeshConfig(*MESHES[job["mesh"]]))
     PT.set_tp_mesh(mesh)
+    res = {}
     try:
         cfg = VQVAEConfig(**VAE_KW)
         st = VT.init_vae_train_state(cfg, _vae())
         rows = mesh.rows(inp["img"].shape[0])
-        st, m = VT.vae_train_step(cfg, st, torch.from_numpy(inp["img"][rows]), 1e-3)
+        for i in range(VAE_STEPS):
+            st, m = VT.vae_train_step(cfg, st, torch.from_numpy(inp["img"][rows]),
+                                      1e-3)
+            res[f"ema{i}"] = st.ema_hits_SV.numpy()
+            res[f"usage{i}"] = m["usage_per_scale"].numpy()
+            res[f"losses{i}"] = np.array([float(m[k]) for k in VAE_LOSSES])
     finally:
         PT.set_tp_mesh(None)
-    return {"ema": st.ema_hits_SV.numpy(), "usage": m["usage_per_scale"].numpy()}
+    res.update({f"p{k}": v for k, v in _flat(st.params).items()})
+    return res
 
 
 def _rank_main(out_dir: str) -> None:
@@ -262,7 +301,8 @@ def _rank_main(out_dir: str) -> None:
         if w != world:
             continue
         res = {"jax": lambda: _rank_jax(job, inp),
-               "vae": lambda: _rank_vae(job, inp)}.get(
+               "vae": lambda: _rank_vae(job, inp),
+               "stop_resume": lambda: _rank_stop_resume(job, out_dir)}.get(
                    job["kind"], lambda: _rank_run(job, out_dir))()
         np.savez(os.path.join(out_dir, f"{job['name']}_rank{rank}.npz"), **res)
     D.shutdown()
@@ -624,15 +664,63 @@ def test_sampler_resumes_mid_epoch():
     assert [next(it2) for _ in range(3)] == [next(it) for _ in range(3)]
 
 
-def test_vae_hits_summed_over_data(ranks):
-    """vae_train_step on each data rank's half of the batch: the EMA hit
-    tracker and the usage are the whole batch's on one process."""
+@pytest.fixture(scope="module")
+def vae_whole():
+    """Two vae_train_steps of one process on the whole batch: per step the
+    EMA tracker, the usage and the losses, then the parameters."""
     from sdvar_tpu_torch.train import vae_trainer as VT
 
     cfg = VQVAEConfig(**VAE_KW)
-    st, m = VT.vae_train_step(cfg, VT.init_vae_train_state(cfg, _vae()),
-                              torch.from_numpy(np.random.default_rng(0).uniform(
-                                  -1, 1, (4, 3, 48, 48)).astype(np.float32)), 1e-3)
+    st = VT.init_vae_train_state(cfg, _vae())
+    img = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (4, 3, 48, 48)).astype(np.float32))
+    steps = []
+    for _ in range(VAE_STEPS):
+        st, m = VT.vae_train_step(cfg, st, img, 1e-3)
+        steps.append((st.ema_hits_SV.numpy(), m["usage_per_scale"].numpy(),
+                      np.array([float(m[k]) for k in VAE_LOSSES])))
+    return steps, _flat(st.params)
+
+
+def test_vae_hits_summed_over_data(ranks, vae_whole):
+    """vae_train_step on each data rank's half of the batch: the EMA hit
+    tracker and the usage are the whole batch's on one process, at both
+    steps."""
+    steps, _ = vae_whole
     for got in ranks[2]["vae_2x1"]:
-        np.testing.assert_array_equal(got["ema"], st.ema_hits_SV.numpy())
-        np.testing.assert_array_equal(got["usage"], m["usage_per_scale"].numpy())
+        for i, (ema, usage, _) in enumerate(steps):
+            np.testing.assert_array_equal(got[f"ema{i}"], ema)
+            np.testing.assert_array_equal(got[f"usage{i}"], usage)
+
+
+def test_vae_step_on_a_data_mesh_takes_the_whole_batch_step(ranks, vae_whole):
+    """The gradients averaged over "data": after two steps the parameters
+    are equal across the ranks and within 1e-5 (relative to each leaf's
+    size) of one process stepping on the whole batch; the losses are the
+    whole batch's means (1e-5)."""
+    steps, params = vae_whole
+    rows = ranks[2]["vae_2x1"]
+    for got in rows:
+        assert {k for k in got if k.startswith("p/")} == {f"p{k}" for k in params}
+        for k, v in params.items():
+            err = np.abs(got[f"p{k}"].astype(np.float64) - v).max()
+            assert err <= 1e-5 * np.abs(v).max(), (k, err, np.abs(v).max())
+        for i, (_, _, losses) in enumerate(steps):
+            np.testing.assert_allclose(got[f"losses{i}"], losses, rtol=1e-5)
+    for k in params:
+        np.testing.assert_array_equal(rows[1][f"p{k}"], rows[0][f"p{k}"], err_msg=k)
+
+
+def test_mesh_run_stopped_and_resumed_is_bit_equal_to_the_straight_run(ranks):
+    """On 2x1: run_training stopped at step 2 and resumed to step 4 (the
+    checkpoint gathered whole and cut again) against the run straight to
+    step 4, every leaf of the parameters and the optimizer state, on both
+    ranks; the draws of both keyed by the step."""
+    for got in ranks[2]["stop_resume_2x1"]:
+        np.testing.assert_array_equal(got["resumed_it"], [3, 4])
+        np.testing.assert_array_equal(got["straight_it"], [1, 2, 3, 4])
+        keys = [k for k in got if k.startswith("straight/")]
+        assert len(keys) > 22
+        for k in keys:
+            np.testing.assert_array_equal(got["resumed" + k[len("straight"):]],
+                                          got[k], err_msg=k)
