@@ -95,9 +95,11 @@ from sdvar_tpu_torch import benchmark_cli
 from sdvar_tpu_torch.engine.decode import decode_all_scales, generate_images
 from sdvar_tpu_torch.engine.serving import GenerationServer
 from sdvar_tpu_torch.engine.speculative import SpeculativeEngine
+from sdvar_tpu_torch.models.quantizer import init_quantizer_params
 from sdvar_tpu_torch.models.var import (
     KVCache,
     apply_transformer,
+    count_params,
     get_logits,
     init_var_params,
     precompute_modulations,
@@ -3126,7 +3128,8 @@ def phase_train_attention():
     1e-5 of the whole-tensor one, in bf16 at most one bf16 rounding beyond
     1e-3 of their size from autograd through ``attention_plain`` (f32
     probabilities too). The gap that the probabilities' bf16 rounding opens
-    in bf16 is printed, not gated. Then the times."""
+    in bf16 is printed, not gated. Then the times. Then the same at the
+    d36-512 training step's shape (``_train_attention_d36``)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     H, hd = TRAIN_DEPTH, 64
@@ -3211,7 +3214,99 @@ def phase_train_attention():
                 f"backward {fb_ms:.4f} ms")
             del x, qx, kx, vx
         torch.cuda.empty_cache()
+    out["d36-512"] = _train_attention_d36(dev, g)
+    torch.cuda.empty_cache()
     return out
+
+def _train_attention_d36(dev, g):
+    """Kernel row 1 at the d36-512 training step's shape (B=2, L=2240,
+    H=36, hd=64, bf16, q/k/v strided views of one fused projection, the
+    512px block-causal f32 bias), whose query tiles run past the 1024 of
+    the high-resolution decode check: the forward within one bf16 step
+    at the largest output, 2^-7 of it, of ``attention_plain`` in f32, and
+    ``attention_plain`` without the last ring tile of keys (and their
+    bias columns) must fall outside that limit; the Function's dq/dk/dv
+    as the training step takes them (chunked by shape at this length,
+    f32 probabilities) at most one bf16 rounding beyond 1e-3 of their size
+    from autograd through ``attention_plain``, and its whole-tensor
+    backward within 1e-3 of their size of autograd through
+    ``attention_composition``. Then the times beside the bound and
+    ``scaled_dot_product_attention``."""
+    B, L, H, hd = D36_TRAIN_B, D36_512.L, D36_512.num_heads, 64
+    bias = device_bias(dev, block_causal_prefix, PATCH_NUMS_512, L)
+    qkv = torch.randn(B, L, 3, H, hd, device=dev, generator=g)
+    qkv[:, :, :2] = F.normalize(qkv[:, :, :2], dim=-1) * 4
+    qkv = qkv.to(torch.bfloat16)
+    go = torch.randn(B, L, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    got = attention_kernel(q, k, v, bias, 1.0).float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = attention_plain(qf, kf, vf, bias, 1.0)
+    err = (got - want).abs().max().item()
+    lim = 2 ** -7 * want.abs().max().item()
+    full = L - (L % KEY_TILE or KEY_TILE)
+    drop = (attention_plain(qf, kf[:, :full], vf[:, :full], bias[:, :full], 1.0)
+            - want).abs().max().item()
+    del got, want, qf, kf, vf
+    grads = {}
+    for tag, fn, chunk in (("function", ATT.attention, None),
+                           ("whole", ATT.attention, 0),
+                           ("composition", ATT.attention_composition, None),
+                           ("plain", attention_plain, None)):
+        x = qkv.detach().requires_grad_()
+        qx, kx, vx = x.unbind(2)
+        set_attention_bwd_chunk(chunk)
+        try:
+            grads[tag] = torch.autograd.grad(fn(qx, kx, vx, bias, 1.0), x, go)[0]
+        finally:
+            set_attention_bwd_chunk(None)
+        del x, qx, kx, vx
+
+    def rel(a, b):
+        return max(_grad_err(grads[a][:, :, i], grads[b][:, :, i])
+                   for i in range(3))
+
+    chunk = ATT.bwd_chunk_for(L, L)
+    w_err, c_gap = rel("whole", "composition"), rel("function", "plain")
+    apart = all(_rounding_apart(grads["function"][:, :, i], grads["plain"][:, :, i])
+                for i in range(3))
+    ok = err <= lim and w_err <= 1e-3 and apart and chunk > 0
+    tag = f"[train attention] d36-512 B={B} L={L} H={H} hd={hd} bf16"
+    log(f"{tag}: forward max|d| {err:.3e} against attention_plain in f32 "
+        f"(limit {lim:.3e}, 2^-7 of the largest output; without the last "
+        f"{L - full} keys, one ring tile, the plain version is {drop:.3e} "
+        f"off); the Function's dq/dk/dv (chunks of {chunk} query rows, as "
+        f"the step takes them) against autograd through attention_plain: "
+        f"max|d| / max|ref| {c_gap:.2e}, within one bf16 rounding beyond "
+        f"0.001 of their size {apart}; the whole-tensor backward against "
+        f"autograd through attention_composition {w_err:.2e} (limit 0.001) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the attention or its gradient disagrees")
+    if drop <= lim:
+        raise AssertionError(f"{tag}: the limit cannot see a dropped key tile")
+    del grads
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    k_ms = cuda_ms(lambda: attention_kernel(q, k, v, bias, 1.0), 20)
+    p_ms = cuda_ms(lambda: attention_plain(q, k, v, bias, 1.0), 5, warmup=1)
+    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias.to(torch.bfloat16), scale=1.0), 20)
+    x = qkv.detach().requires_grad_()
+    qx, kx, vx = x.unbind(2)
+
+    def fwd_bwd():
+        torch.autograd.grad(ATT.attention(qx, kx, vx, bias, 1.0), x, go)
+
+    fb_ms = cuda_ms(fwd_bwd, 5, warmup=1)
+    bound, by = _train_att_bound(B, L, H, hd, bias)
+    log(f"[time] {tag}, block-causal bias: kernel_ms {k_ms:.4f} plain_ms "
+        f"{p_ms:.4f} library_ms {l_ms:.4f} (scaled_dot_product_attention, "
+        f"the same float attn_mask) bound_ms {bound:.4f} ({by}); the "
+        f"Function's forward + backward {fb_ms:.4f} ms")
+    return {"kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": bound, "bound_by": by, "function_fwd_bwd_ms": fb_ms,
+            "max_abs_err": err, "limit": lim, "last_tile_dropped": drop,
+            "grad_err_composition": w_err, "grad_gap_plain": c_gap}
 
 
 def _train_small():
@@ -3238,8 +3333,8 @@ def phase_train_small_reference():
     vc, qc, p, q, img, label = _train_small()
     lr = 1e-4
     res = {}
-    for dev in ("cpu", DEV):
-        st = TR.init_train_state(_to(p, dev))
+    for dev in ("cpu", DEV):  # copies: a step writes into its state
+        st = TR.init_train_state(_to(p, dev, copy=True))
         vae = _to(q, dev)
         _, gt, _ = TR.tokenize(vc, qc, vae, img.to(dev))
         _reset_counts()
@@ -3279,6 +3374,40 @@ def phase_train_small_reference():
 
 def _finite_tree(tree) -> bool:
     return all(bool(torch.isfinite(t).all()) for _, t in TR.tree_leaves(tree))
+
+
+@contextlib.contextmanager
+def _optimizer_peak():
+    """For the block, each call of ``train.trainer.apply_optimizer`` (from
+    ``train_step``) records the allocator's peak above what was allocated
+    when it started ("added", the largest over the calls) and the peak
+    before it ("before": the allocator's peak is reset at each call, so
+    max(before, max_memory_allocated()) is the whole block's peak)."""
+    real, rec = TR.apply_optimizer, {"added": 0, "before": 0, "calls": 0}
+
+    def measured(*args, **kwargs):
+        rec["before"] = max(rec["before"], torch.cuda.max_memory_allocated())
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*args, **kwargs)
+        rec["added"] = max(rec["added"], torch.cuda.max_memory_allocated() - start)
+        rec["calls"] += 1
+        return out
+
+    TR.apply_optimizer = measured
+    try:
+        yield rec
+    finally:
+        TR.apply_optimizer = real
+
+
+def _largest_leaf(tree) -> int:
+    return max(t.numel() * t.element_size() for _, t in TR.tree_leaves(tree))
+
+
+def _storage(state) -> list:
+    return [t.data_ptr() for _, t in TR.tree_leaves(
+        {"params": state.params, "opt_state": state.opt_state})]
 
 
 def phase_train(name):
@@ -3328,8 +3457,21 @@ def phase_train(name):
     step = functools.partial(TR.train_step, var_cfg, vae_cfg, vae_params=vae,
                              img=img, label_B=label, lr=lr, wd=wd,
                              generator=gen, label_smooth=tc.label_smooth)
-    state, m = step(state)  # warm-up
+    largest = _largest_leaf(state.params)
+    ptrs = _storage(state)
+    with _optimizer_peak() as opt:
+        state, m = step(state)  # warm-up
     torch.cuda.synchronize()
+    kept = _storage(state) == ptrs
+    log(f"[train d16] the optimizer (apply_optimizer, in place) of the "
+        f"warm-up step: added peak {opt['added'] / 2 ** 20:.1f} MiB over the "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, limit "
+        f"the largest leaf's {largest / 2 ** 20:.1f} MiB; every state leaf "
+        f"in its own storage {kept} "
+        f"{'ok' if opt['added'] <= largest and kept else 'FAIL'}")
+    if not (opt["calls"] == 1 and opt["added"] <= largest and kept):
+        raise AssertionError("[train d16] the optimizer's added peak passes "
+                             "the largest leaf, or a leaf moved")
     ms, losses, gnorms = [], [], []
     for _ in range(4):
         _reset_counts()
@@ -3380,7 +3522,7 @@ def phase_train(name):
         ids = TR.tokenize(var_cfg, vae_cfg, vae, img)[1]
     torch.cuda.synchronize()
     tok_ms = (time.perf_counter() - t0) * 1e3 / 3
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = max(opt["before"], torch.cuda.max_memory_allocated()) / 2 ** 30
     best = min(ms)
     log(f"[train d16] train_step, bs {TRAIN_B}: {', '.join(f'{x:.1f}' for x in ms)} "
         f"ms (best {best:.1f} ms, {TRAIN_B / best * 1e3:.2f} img/s); the f32 "
@@ -3423,6 +3565,7 @@ def phase_train(name):
     del state, vae
     torch.cuda.empty_cache()
     return {"launches_per_step": launches, "remat_launches_per_step": runs["remat"],
+            "optimizer_added_mib": opt["added"] / 2 ** 20,
             "step_ms": best, "img_per_s": TRAIN_B / best * 1e3,
             "tokenize_ms": tok_ms,
             "spans_ms": {k: v["mean_ms"] for k, v in spans.items()},
@@ -3598,14 +3741,14 @@ def _leaves(tree):
         yield tree
 
 
-def _to(tree, dev):
+def _to(tree, dev, copy=False):
     if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
+        return {k: _to(v, dev, copy) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
+        return [_to(v, dev, copy) for v in tree]
     if isinstance(tree, tuple):  # an INT8 weight leaf keeps its class
-        return type(tree)(*(_to(v, dev) for v in tree))
-    return tree.to(dev)
+        return type(tree)(*(_to(v, dev, copy) for v in tree))
+    return tree.to(dev, copy=copy)
 
 
 # ---------------------------------------------------------------------------
@@ -3962,8 +4105,8 @@ def phase_vae_train(name):
     x = torch.from_numpy(np.random.default_rng(5).uniform(
         -1, 1, (2, 3, 48, 48)).astype(np.float32))
     res = {}
-    for dev in ("cpu", DEV):
-        s = VT.init_vae_train_state(small, _to(p, dev))
+    for dev in ("cpu", DEV):  # copies: a step writes into its state
+        s = VT.init_vae_train_state(small, _to(p, dev, copy=True))
         ls = []
         with full_f32():
             for _ in range(3):
@@ -4833,6 +4976,80 @@ def phase_training_tools(name):
     return res
 
 
+# the fifteenth slice: VAR-d36 512px trains with f32 master weights and
+# AdamW on one card, its state updated in place (the JAX tool's
+# ``bench_train step 36 B reso512 remat tokens`` recipe, at B=2)
+D36_TRAIN_B = 2
+
+
+def phase_d36_train(name):
+    """VAR-d36 at 512px with shared AdaLN (C=2304, 36 heads, L=2240, 2.35 B
+    parameters), f32 master weights, AdamW, bf16 forward, remat: one
+    token-path ``train_step`` at B=2 on random ids from seed 7 (the
+    quantizer's weights from seed 3, as ``tools/adjudicate_mfu``'s token
+    step). Gates: the loss and the grad norm finite; every leaf of the
+    parameters and of Adam's state in its own storage after the step, and
+    a parameter leaf changed; kernel row 1 launched 72 times (36 layers,
+    each forward again in the backward) and no other kernel; the
+    optimizer's added peak (``apply_optimizer``, above what is allocated
+    when it starts) at most the largest leaf's bytes (a stacked fc1_w,
+    2.85 GiB). Prints the step's time (the first at this shape), the
+    optimizer's added peak and the allocator's peak."""
+    _free_card("d36-512 train f32, before")
+    dev = torch.device(DEV)
+    cfg, vae_cfg = D36_512, VQVAEConfig(patch_nums=PATCH_NUMS_512)
+    t0 = time.time()
+    state = TR.init_train_state(init_var_params(cfg, seed=0, device=DEV))
+    vae = {"quant": init_quantizer_params(
+        vae_cfg, torch.Generator(device=dev).manual_seed(3), dev)}
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (D36_TRAIN_B, cfg.L))
+                           ).to(dev)
+    label = torch.from_numpy(rng.integers(0, 1000, (D36_TRAIN_B,))).to(dev)
+    n_params, largest = count_params(state.params), _largest_leaf(state.params)
+    before = state.params["head"]["w"].clone()
+    ptrs = _storage(state)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _optimizer_peak() as opt:
+        state, m = TR.train_step(
+            cfg, vae_cfg, state, vae, ids, label, 1e-4, 0.05,
+            TR.step_generator(0, 0, dev), label_smooth=0.1,
+            dtype=torch.bfloat16, remat=True, pretokenized=True)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = _read_counts()
+    peak = max(opt["before"], torch.cuda.max_memory_allocated()) / 2 ** 30
+    kept = _storage(state) == ptrs
+    moved = not torch.equal(before, state.params["head"]["w"])
+    want = 2 * cfg.depth
+    ok = (math.isfinite(loss) and math.isfinite(gnorm) and kept and moved
+          and counts == _want(attention=want) and opt["calls"] == 1
+          and opt["added"] <= largest)
+    log(f"[d36-512 train f32] VAR-d36 512px shared AdaLN, {n_params / 1e9:.3f} "
+        f"B parameters, f32 master weights + AdamW state {state_gib:.2f} GiB "
+        f"(init {init_s:.1f} s); one token-path train_step, B={D36_TRAIN_B}, "
+        f"remat, bf16 forward: {step_ms:.1f} ms (the first at this shape), "
+        f"loss {loss:.4f}, grad norm {gnorm:.4f}; every state leaf in its own "
+        f"storage {kept}, a parameter changed {moved}; row 1 launches "
+        f"{counts['attention']} (want {want}, no other kernel); the "
+        f"optimizer's added peak {opt['added'] / 2 ** 30:.3f} GiB (limit the "
+        f"largest leaf, {largest / 2 ** 30:.3f} GiB); the allocator's peak "
+        f"{peak:.2f} GiB on {name} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[d36-512 train f32] a gate failed")
+    del state, vae, before, m
+    _free_card("d36-512 train f32, after")
+    return {"launches_per_step": counts["attention"], "step_ms": step_ms,
+            "optimizer_added_gib": opt["added"] / 2 ** 30, "peak_gib": peak,
+            "state_gib": state_gib, "loss": loss}
+
+
 MESH_ROWS = ("attention", "sampler", "attention_int8", "act_quantize",
              "int8_matmul")
 
@@ -4894,6 +5111,9 @@ def main() -> int:
     t_tools = time.time()
     tools = phase_training_tools(name)
     log(f"[training tools] phases took {time.time() - t_tools:.1f} s")
+    t_d36 = time.time()
+    d36_train = phase_d36_train(name)
+    log(f"[d36-512 train f32] phase took {time.time() - t_d36:.1f} s")
     highres = phase_highres(name)
     phase_mesh_replicated()
     t_mesh = time.time()
@@ -4924,8 +5144,11 @@ def main() -> int:
                             "mesh_launches_per_step_per_rank": {
                                 tag: train_mesh[0][tag]["launches_per_step"]
                                 for tag in TRAIN_MESHES},
+                            "d36_512_f32_remat_launches_per_step":
+                                d36_train["launches_per_step"],
                             "L680": train_att[680],
                             "L424": train_att[TRAIN_PREFIX],
+                            "d36_512_B2_L2240": train_att["d36-512"],
                             "smoke_f32_hd32": smoke}
     for row in kernels:  # launches of the training tools' runs
         if row["name"] == "attention":

@@ -223,16 +223,19 @@ def data_count() -> int:
     return 1 if m is None else m.data
 
 
+@torch.no_grad()
 def mean_over_data(tensors):
     """The mean over the data ranks of each of ``tensors`` (gradients,
-    metrics), new tensors of their shapes and dtypes: flattened into f32
-    buckets of at most ``DATA_BUCKET`` elements, one all-reduce a bucket,
-    then divided by the data count. The list itself without a data split."""
+    metrics), written into the tensors themselves, so that a gradient tree
+    and its mean never exist at once: flattened into f32 buckets of at
+    most ``DATA_BUCKET`` elements, one all-reduce a bucket, divided by the
+    data count, then copied back in each tensor's dtype. Returns the list
+    of the same tensors (untouched without a data split)."""
     tensors = list(tensors)
     m = _active_mesh()
     if m is None or m.data == 1:
         return tensors
-    out, i = [], 0
+    i = 0
     while i < len(tensors):
         j, size = i, 0
         while j < len(tensors) and (
@@ -241,11 +244,12 @@ def mean_over_data(tensors):
             j += 1
         flat = torch.cat([t.detach().reshape(-1).float() for t in tensors[i:j]])
         m.all_reduce(flat, DATA)
-        flat = flat / m.data
+        flat.div_(m.data)
         for t, part in zip(tensors[i:j], flat.split([t.numel() for t in tensors[i:j]])):
-            out.append(part.view(t.shape).to(t.dtype))
+            t.copy_(part.view(t.shape))
+        del flat
         i = j
-    return out
+    return tensors
 
 
 def gather_vocab(t: torch.Tensor, vocab: int) -> torch.Tensor:

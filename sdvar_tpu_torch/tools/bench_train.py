@@ -88,7 +88,8 @@ def _card(tag: str, dev) -> str:
 def _sgd_step(var_cfg, vae_cfg, vae_params, remat, tokenize_bf16,
               pretokenized, lr=1e-4):
     """``p - lr * g`` after train_step's forward (label smoothing 0, bf16
-    compute), no optimizer state; returns (params, loss)."""
+    compute), no optimizer state; written into the parameters, as the JAX
+    tool's donated ``sgd_step``; returns (params, loss): the same tree."""
     def step(params, img, label, gen):
         leaves = T.tree_map(lambda t: t.detach().requires_grad_(), params)
         _, gt, x_in = T.tokenize(var_cfg, vae_cfg, vae_params, img,
@@ -99,8 +100,8 @@ def _sgd_step(var_cfg, vae_cfg, vae_params, remat, tokenize_bf16,
             loss, [t for _, t in T.tree_leaves(leaves)], allow_unused=True,
             materialize_grads=True))
         with torch.no_grad():
-            new = T.tree_map(lambda p: p - lr * next(grads), params)
-        return new, loss.detach()
+            T.tree_map(lambda p: p.sub_(lr * next(grads)), params)
+        return params, loss.detach()
     return step
 
 
@@ -317,12 +318,12 @@ def bench_varonly(depth: int, B: int, iters: int = 5, remat: bool = False,
                                      T.step_generator(0, i, dev), 0.1,
                                      dtype=torch.bfloat16, remat=remat)
         flat = [t for _, t in T.tree_leaves(leaves)]
-        it = iter(torch.autograd.grad(loss, flat, allow_unused=True,
-                                      materialize_grads=True))
+        it = iter(T.owned_grads(torch.autograd.grad(
+            loss, flat, allow_unused=True, materialize_grads=True)))
         grads = T.tree_map(lambda _: next(it), box[0])
         gnorm = T.global_norm(grads)
-        box[0], box[1] = T.apply_optimizer(box[0], grads, box[1], 1e-4, 0.05,
-                                           clip=2.0)
+        T.apply_optimizer(box[0], grads, box[1], 1e-4, 0.05, clip=2.0,
+                          norm=gnorm)
         return float(loss.detach()), float(gnorm)
 
     t0 = time.time()

@@ -12,7 +12,10 @@ optimizer: clipping by the global norm, then Adam (b1 0.9, b2 0.95,
 eps 1e-8, bias-corrected) or, with ``kind="adafactor"``, factored second
 moments, both as optax computes them; then the decoupled weight decay and
 the learning rate by hand, ``p -= lr * (u + wd * p * mask)``, with the
-no-decay mask of ``decay_mask``.
+no-decay mask of ``decay_mask``. A step consumes its state, as the JAX
+step's donated state: the new parameters and moments are written into the
+given tensors (``apply_optimizer``), so a caller that wants the state from
+before a step copies it first (``tree_map(torch.clone, ...)``).
 
 Parameters are the port's nested dicts of f32 tensors (the master
 weights); the forward casts them to ``dtype`` (bf16 by default). The
@@ -63,6 +66,9 @@ from sdvar_tpu_torch.utils.device import full_f32
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8
 FACTORED_DECAY, FACTORED_EPS, FACTORED_MIN_DIM = 0.8, 1e-30, 128
+# elements of one piece of a leaf in the in-place optimizer (64 MiB of
+# f32; one d36 layer's fc1_w, 79 MiB, goes alone)
+OPT_PIECE = 1 << 24
 METRICS = ("Lm", "Lt", "Accm", "Acct", "z_voc_usage")
 
 
@@ -262,109 +268,157 @@ def _pick(tree, i):
     return tree[i]
 
 
-def clip_by_global_norm(grads, max_norm: float,
-                        norm: Optional[torch.Tensor] = None):
-    """optax's rule: unchanged below ``max_norm``, else (g / norm) * max
-    (``norm``: the global norm, ``global_norm(grads)`` when not given)."""
-    if norm is None:
-        norm = global_norm(grads)
+def _pieces(t: torch.Tensor):
+    """Views that tile ``t`` along its first axis, each at most
+    ``OPT_PIECE`` elements or one slice of that axis (the whole tensor
+    where it fits): the in-place optimizer works through a stacked leaf
+    (leading ``depth`` axis) a few layers at a time, so its temporaries
+    are a piece's, not a leaf's. Every update that goes through them is
+    elementwise, so the pieces give the bits of the whole leaf."""
+    if t.dim() < 2 or t.numel() <= OPT_PIECE:
+        return [t]
+    per = max(1, OPT_PIECE // t[0].numel())
+    return [t[i:i + per] for i in range(0, t.shape[0], per)]
+
+
+def _piece(x: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """Rows [start, start + n) of x, or x itself where its first axis is a
+    broadcast axis of size 1."""
+    return x if x.shape[0] == 1 else x[start:start + n]
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float, norm: torch.Tensor):
+    """optax's rule, in place: unchanged below ``max_norm``, else
+    (g / norm) * max (``norm``: the global norm, ``global_norm(grads)``).
+    Returns ``grads``, its tensors overwritten."""
     if max_norm <= 0:
         return grads
     small = norm < max_norm
-    return tree_map(lambda g: torch.where(small, g, (g / norm) * max_norm),
-                    grads)
+
+    def clip(g):
+        for gs in _pieces(g):
+            torch.where(small, gs, (gs / norm) * max_norm, out=gs)
+
+    tree_map(clip, grads)
+    return grads
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
-def adam_update(grads, opt_state: Dict) -> Tuple[Dict, Dict]:
-    """Adam's direction and state: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 +
-    b2 nu, u = mu_hat / (sqrt(nu_hat) + eps) with the bias corrections
-    1 - b^count in f32."""
-    count = opt_state["count"] + 1
-    mu = tree_map(lambda g, m: (1 - ADAM_B1) * g + ADAM_B1 * m,
-                  grads, opt_state["mu"])
-    nu = tree_map(lambda g, v: (1 - ADAM_B2) * (g * g) + ADAM_B2 * v,
-                  grads, opt_state["nu"])
+def _descend(p: torch.Tensor, u: torch.Tensor, lr_t, wd_t, decay: bool):
+    """p + (-lr) * (u + wd * p * mask), written into p."""
+    p.add_((-lr_t) * (u + wd_t * p * float(decay)))
+
+
+def adam_update(params, grads, opt_state: Dict, lr: float, wd: float,
+                mask) -> None:
+    """Adam, in place: count += 1, mu = (1-b1) g + b1 mu, nu = (1-b2) g^2
+    + b2 nu, then each parameter takes u = mu_hat / (sqrt(nu_hat) + eps)
+    (bias corrections 1 - b^count in f32) through ``_descend``, piece by
+    piece: the direction never exists as a whole tree."""
+    count = opt_state["count"]
+    count.add_(1)
     c = count.to(torch.float32)
     bc1 = 1 - torch.tensor(ADAM_B1, dtype=torch.float32) ** c
     bc2 = 1 - torch.tensor(ADAM_B2, dtype=torch.float32) ** c
 
-    def direction(m, v):
-        m_hat = m / bc1.to(m.device)
-        v_hat = v / bc2.to(v.device)
-        return m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
+    def leaf(p, g, m, v, decay):
+        lr_t, wd_t = _f32(lr, p), _f32(wd, p)
+        b1, b2 = bc1.to(m.device), bc2.to(v.device)
+        for ps, gs, ms, vs in zip(*map(_pieces, (p, g, m, v))):
+            torch.add((1 - ADAM_B1) * gs, ADAM_B1 * ms, out=ms)
+            torch.add((1 - ADAM_B2) * (gs * gs), ADAM_B2 * vs, out=vs)
+            _descend(ps, (ms / b1) / (torch.sqrt(vs / b2) + ADAM_EPS),
+                     lr_t, wd_t, decay)
 
-    return tree_map(direction, mu, nu), {"count": count, "mu": mu, "nu": nu}
+    tree_map(leaf, params, grads, opt_state["mu"], opt_state["nu"], mask)
 
 
-def factored_rms_update(grads, opt_state: Dict,
-                        layout=None) -> Tuple[Dict, Dict]:
+def factored_rms_update(params, grads, opt_state: Dict, lr: float, wd: float,
+                        mask, layout=None) -> None:
     """optax's ``scale_by_factored_rms`` (Adafactor's second moments, no
-    first moment): decay 1 - (count + 1)^-0.8; a leaf whose two largest
-    axes are both >= 128 keeps a row and a column mean of g^2 + 1e-30,
-    the others the full second moment; u = g * rsqrt of the estimate.
+    first moment), in place: count += 1, decay 1 - count^-0.8; a leaf
+    whose two largest axes are both >= 128 keeps a row and a column mean
+    of g^2 + 1e-30, the others the full second moment; each parameter
+    takes u = g * rsqrt of the estimate through ``_descend``, piece by
+    piece. The row and column means reduce the whole leaf's g^2 (one
+    leaf-sized temporary): on the card a mean over a strided axis taken
+    piece by piece sums in another order (the reduction splits an output
+    over blocks by the number of outputs; ``tools/probe_factored_pieces``).
     Under ``layout`` (``mesh_layout``) the axes are chosen on the leaf's
     whole shape, and a mean over an axis that splits over "model" is
     all-reduced (the shards are of one size: the mean of their means)."""
-    t = (opt_state["count"] + 1).to(torch.float32)
+    count = opt_state["count"]
+    count.add_(1)
+    t = count.to(torch.float32)
     decay = 1.0 - t ** torch.tensor(-FACTORED_DECAY, dtype=torch.float32)
 
     mesh = layout[0] if layout is not None else None
 
-    def one(g, vr, vc, v, split):
+    def one(p, g, vr, vc, v, split, wd_mask):
         d = decay.to(g.device)
+        lr_t, wd_t = _f32(lr, p), _f32(wd, p)
         whole = tuple(n * (mesh.model if i in split else 1)
                       for i, n in enumerate(g.shape))
         dims = _factored_dims(whole)
-        g2 = g * g + FACTORED_EPS
         if dims is None:
-            nv = d * v + (1.0 - d) * g2
-            return g * nv ** -0.5, vr, vc, nv
+            for ps, gs, vs in zip(*map(_pieces, (p, g, v))):
+                torch.add(d * vs, (1.0 - d) * (gs * gs + FACTORED_EPS), out=vs)
+                _descend(ps, gs * vs ** -0.5, lr_t, wd_t, wd_mask)
+            return
 
         def mean(x, dim, axis, keepdim=False):
             m = x.mean(dim=dim, keepdim=keepdim)
             return mesh.all_reduced(m, MODEL) / mesh.model if axis in split else m
 
         d1, d0 = dims
-        nvr = d * vr + (1.0 - d) * mean(g2, d0, d0)
-        nvc = d * vc + (1.0 - d) * mean(g2, d1, d1)
+        g2 = g * g
+        g2.add_(FACTORED_EPS)
+        rows, cols = mean(g2, d0, d0), mean(g2, d1, d1)
+        del g2
+        torch.add(d * vr, (1.0 - d) * rows, out=vr)
+        torch.add(d * vc, (1.0 - d) * cols, out=vc)
         rd1 = d1 - 1 if d1 > d0 else d1
-        row_factor = (nvr / mean(nvr, rd1, d1, keepdim=True)) ** -0.5
-        col_factor = nvc ** -0.5
-        u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-        return u, nvr, nvc, v
+        row = ((vr / mean(vr, rd1, d1, keepdim=True)) ** -0.5).unsqueeze(d0)
+        col = (vc ** -0.5).unsqueeze(d1)
+        start = 0
+        for ps, gs in zip(_pieces(p), _pieces(g)):
+            n = gs.shape[0]
+            _descend(ps, gs * _piece(row, start, n) * _piece(col, start, n),
+                     lr_t, wd_t, wd_mask)
+            start += n
 
-    out = tree_map(one, grads, opt_state["v_row"], opt_state["v_col"],
-                   opt_state["v"], _split_tree(grads, layout))
-    state = {"count": opt_state["count"] + 1, "v_row": _pick(out, 1),
-             "v_col": _pick(out, 2), "v": _pick(out, 3)}
-    return _pick(out, 0), state
+    tree_map(one, params, grads, opt_state["v_row"], opt_state["v_col"],
+             opt_state["v"], _split_tree(grads, layout), mask)
 
 
+@torch.no_grad()
 def apply_optimizer(params: Dict, grads: Dict, opt_state: Dict,
                     lr: float, wd: float, clip: float = 2.0,
-                    kind: str = "adamw", layout=None) -> Tuple[Dict, Dict]:
+                    kind: str = "adamw", layout=None, *,
+                    norm: torch.Tensor) -> Tuple[Dict, Dict]:
     """clip -> Adam or factored RMS -> p + (-lr) * (u + wd * p * mask);
-    lr and wd in f32. Returns (params, opt_state), new tensors.
-    ``layout``: ``mesh_layout``'s, on a mesh."""
-    if clip > 0:
-        grads = clip_by_global_norm(grads, clip, global_norm(grads, layout))
-    if kind == "adamw":
-        u, opt_state = adam_update(grads, opt_state)
-    elif kind == "adafactor":
-        u, opt_state = factored_rms_update(grads, opt_state, layout)
-    else:
+    lr and wd in f32. In place, as the JAX step writes its donated state:
+    ``params`` and ``opt_state`` are updated where they lie, ``grads``
+    clipped where they lie; returns (params, opt_state), the same trees.
+    ``layout``: ``mesh_layout``'s, on a mesh (None off one). ``norm``:
+    the global norm of ``grads`` (``global_norm(grads, layout)``). Beyond
+    what is allocated when it starts, it holds at most three temporaries
+    of one piece (``_pieces``); the factored RMS also one leaf's g^2, the
+    workspace of its mean over a strided axis, and its row and column
+    means."""
+    if kind not in ("adamw", "adafactor"):
         raise ValueError(f"optimizer {kind!r} (adamw | adafactor)")
+    clip_by_global_norm(grads, clip, norm)
     mask = decay_mask(params)
-
-    def step(p, d, m):
-        lr_t, wd_t = _f32(lr, p), _f32(wd, p)
-        return p + (-lr_t) * (d + wd_t * p * float(m))
-
-    return tree_map(step, params, u, mask), opt_state
+    if kind == "adamw":
+        adam_update(params, grads, opt_state, lr, wd, mask)
+    else:
+        factored_rms_update(params, grads, opt_state, lr, wd, mask, layout)
+    return params, opt_state
 
 
 def step_generator(seed: int, g_it: int, device) -> torch.Generator:
@@ -479,6 +533,22 @@ def _grad(loss: torch.Tensor, flat):
                                materialize_grads=True)
 
 
+def owned_grads(grads):
+    """The gradients as tensors a step may write into, each on memory of
+    its own: autograd may hand back an expanded (non-contiguous) tensor,
+    or views of one buffer or one tensor for two inputs; such a gradient
+    is cloned, every other one kept as it is."""
+    out, seen = [], set()
+    for g in grads:
+        ptr = g.untyped_storage().data_ptr()
+        if not g.is_contiguous() or ptr in seen:
+            g = g.clone(memory_format=torch.contiguous_format)
+            ptr = g.untyped_storage().data_ptr()
+        seen.add(ptr)
+        out.append(g)
+    return out
+
+
 def train_step(
     var_cfg: VARConfig, vae_cfg: VQVAEConfig, state: TrainState,
     vae_params: Dict, img: torch.Tensor, label_B: torch.Tensor,
@@ -489,15 +559,18 @@ def train_step(
     optimizer: str = "adamw", pretokenized: bool = False, timer=None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One step: tokenize -> forward/backward (summed over ``grad_accum``
-    micro-batches of B / grad_accum rows, then averaged) -> on a mesh the
-    mean over "data" -> clip -> optimizer. ``generator``: the step's
-    training draws (None: the forward is deterministic). On a mesh, img
-    and label_B are this rank's rows and ``state`` its shard. ``timer``: a
-    ``utils.profiling.SpanTimer`` that gets the spans tokenize, forward,
-    backward, data all-reduce and optimizer. Returns the new state (new
-    tensors; the given one is left as it was) and the metrics, device
-    scalars: ``METRICS`` plus loss, grad_norm (before clipping), lr and
-    wd."""
+    micro-batches of B / grad_accum rows into the first one's gradients,
+    then averaged) -> on a mesh the mean over "data", into the same
+    gradients -> the global norm, once -> clip -> optimizer.
+    ``generator``: the step's training draws (None: the forward is
+    deterministic). On a mesh, img and label_B are this rank's rows and
+    ``state`` its shard. ``timer``: a ``utils.profiling.SpanTimer`` that
+    gets the spans tokenize, forward, backward, data all-reduce and
+    optimizer. The step consumes ``state``, as the JAX step's donated
+    state: it returns a ``TrainState`` of the same tensors, updated, with
+    ``step + 1`` (copy the state first to keep the one from before), and
+    the metrics, device scalars: ``METRICS`` plus loss, grad_norm (before
+    clipping), lr and wd."""
     layout = mesh_layout(var_cfg)
     span = timer.span if timer is not None else (
         lambda name: contextlib.nullcontext())
@@ -520,7 +593,7 @@ def train_step(
 
     if grad_accum <= 1:
         loss, metrics = forward(img, label_B)
-        grads = list(backward(loss))
+        grads = owned_grads(backward(loss))
     else:
         mb = img.shape[0] // grad_accum
         grads, loss, metrics = None, 0.0, {k: 0.0 for k in METRICS}
@@ -528,17 +601,24 @@ def train_step(
             sl = slice(i * mb, (i + 1) * mb)
             l_i, m_i = forward(img[sl], label_B[sl])
             g_i = backward(l_i)
-            grads = list(g_i) if grads is None else [
-                a + b for a, b in zip(grads, g_i)]
+            if grads is None:
+                grads = owned_grads(g_i)
+            else:
+                with torch.no_grad():
+                    for a, b in zip(grads, g_i):
+                        a.add_(b)
+            del g_i
             loss = loss + l_i.detach()
             metrics = {k: metrics[k] + m_i[k] for k in METRICS}
-        grads = [g / grad_accum for g in grads]
+        with torch.no_grad():
+            for g in grads:
+                g.div_(grad_accum)
         loss = loss / grad_accum
         metrics = {k: v / grad_accum for k, v in metrics.items()}
     loss = loss.detach()
     if data_count() > 1:
         with span("data all-reduce"):
-            grads = mean_over_data(grads)
+            mean_over_data(grads)
             means = ("Lm", "Lt", "Accm", "Acct")
             red = mean_over_data([torch.stack([loss] + [metrics[k] for k in means])])[0]
             loss = red[0]
@@ -547,14 +627,13 @@ def train_step(
         it = iter(grads)
         grads = tree_map(lambda _: next(it), state.params)
         gnorm = global_norm(grads, layout)
-        params, opt_state = apply_optimizer(state.params, grads,
-                                            state.opt_state, lr, wd, clip,
-                                            optimizer, layout)
+        apply_optimizer(state.params, grads, state.opt_state, lr, wd, clip,
+                        optimizer, layout, norm=gnorm)
     dev = gnorm.device
     metrics = dict(metrics, loss=loss, grad_norm=gnorm,
                    lr=torch.tensor(lr, dtype=torch.float32, device=dev),
                    wd=torch.tensor(wd, dtype=torch.float32, device=dev))
-    return TrainState(params, opt_state, state.step + 1), metrics
+    return TrainState(state.params, state.opt_state, state.step + 1), metrics
 
 
 @torch.no_grad()

@@ -25,7 +25,7 @@ from sdvar_tpu_torch.config import VQVAEConfig
 from sdvar_tpu_torch.models import quantizer as Q
 from sdvar_tpu_torch.models import vqvae as VQ
 from sdvar_tpu_torch.ops.partition import data_count, mean_over_data, reduce_data
-from sdvar_tpu_torch.train.trainer import tree_leaves, tree_map
+from sdvar_tpu_torch.train.trainer import owned_grads, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -57,30 +57,36 @@ def vae_loss(cfg: VQVAEConfig, params: Dict, img: torch.Tensor
 def vae_train_step(cfg: VQVAEConfig, state: VAETrainState, img: torch.Tensor,
                    lr: float) -> Tuple[VAETrainState, Dict]:
     """One SGD step, ``p - lr * g`` on every parameter, and the EMA
-    codebook-hit update. Returns the new state (new tensors) and the
-    metrics: loss, rec_loss, vq_loss and usage_per_scale (SN,) in %. On a
-    mesh ``img`` is this rank's rows: the gradients and the three losses
-    are averaged over "data" (the global batch's mean, as the JAX step
+    codebook-hit update, both written into the state's tensors: the step
+    consumes ``state``, as the JAX step's donated state, and returns a
+    ``VAETrainState`` of the same tensors with ``step + 1`` (copy the
+    state first to keep the one from before), and the metrics: loss,
+    rec_loss, vq_loss and usage_per_scale (SN,) in %. On a mesh ``img`` is
+    this rank's rows: the gradients (in place) and the three losses are
+    averaged over "data" (the global batch's mean, as the JAX step
     computes it on the whole batch) and the hits summed, so every rank
     takes the same step."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(), state.params)
     flat = [t for _, t in tree_leaves(leaves)]
     loss, (hits_SV, metrics) = vae_loss(cfg, leaves, img)
-    grads = torch.autograd.grad(loss, flat, allow_unused=True,
-                                materialize_grads=True)
+    grads = owned_grads(torch.autograd.grad(loss, flat, allow_unused=True,
+                                            materialize_grads=True))
     losses = torch.stack([loss.detach(), metrics["rec_loss"].detach(),
                           metrics["vq_loss"].detach()])
     if data_count() > 1:
-        *grads, losses = mean_over_data(list(grads) + [losses])
+        mean_over_data(grads + [losses])
     grads = iter(grads)
     lr_t = torch.tensor(lr, dtype=torch.float32)
-    params = tree_map(lambda p: p - lr_t.to(p.device) * next(grads),
-                      state.params)
-    hits_SV = reduce_data(hits_SV.detach())
-    ema = Q.update_vocab_hit_ema(state.ema_hits_SV, hits_SV, state.step)
+    with torch.no_grad():
+        tree_map(lambda p: p.sub_(lr_t.to(p.device) * next(grads)),
+                 state.params)
+        hits_SV = reduce_data(hits_SV.detach())
+        state.ema_hits_SV.copy_(Q.update_vocab_hit_ema(
+            state.ema_hits_SV, hits_SV, state.step))
     B, H = img.shape[0], cfg.patch_nums[-1]
-    usage = Q.vocab_usage_per_scale(cfg, ema, batch_tokens=B * H * H,
+    usage = Q.vocab_usage_per_scale(cfg, state.ema_hits_SV,
+                                    batch_tokens=B * H * H,
                                     world_size=data_count())
     metrics = {"loss": losses[0], "rec_loss": losses[1], "vq_loss": losses[2],
                "usage_per_scale": usage}
-    return VAETrainState(params, ema, state.step + 1), metrics
+    return VAETrainState(state.params, state.ema_hits_SV, state.step + 1), metrics

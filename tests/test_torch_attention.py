@@ -164,6 +164,28 @@ def test_highres_row1_limit_sees_a_dropped_key_tile(Lk):
     assert (drop - want).abs().max() > 2 ** -7 * want.abs().max()
 
 
+def test_d36_train_row1_limit_sees_a_dropped_key_tile():
+    """The card's check of kernel row 1 at the d36-512 training shape
+    (``chip_smoke.py``: q and k four times unit vectors, bf16, the 512px
+    block-causal bias, L=2240) holds the forward within 2^-7 of the
+    largest output of ``attention_plain`` in f32. The plain version
+    without the last ring tile of keys and their bias columns falls
+    outside that limit (here on 4 heads; the card runs 36)."""
+    from sdvar_tpu_torch.config import PATCH_NUMS_512
+    from sdvar_tpu_torch.ops.masks import block_causal_prefix
+
+    L = 2240
+    bias = torch.from_numpy(block_causal_prefix(PATCH_NUMS_512, L))
+    rng = np.random.default_rng(36)
+    qkv = torch.from_numpy(rng.standard_normal((1, L, 3, 4, 64)).astype(np.float32))
+    qkv[:, :, :2] = torch.nn.functional.normalize(qkv[:, :, :2], dim=-1) * 4
+    q, k, v = qkv.to(torch.bfloat16).float().unbind(2)
+    want = attention_plain(q, k, v, bias, 1.0)
+    full = L - (L % KEY_TILE or KEY_TILE)
+    drop = attention_plain(q, k[:, :full], v[:, :full], bias[:, :full], 1.0)
+    assert (drop - want).abs().max() > 2 ** -7 * want.abs().max()
+
+
 DEPTH, LMAX, LI = 3, 48, 1
 C = H * HD
 

@@ -71,6 +71,7 @@ def test_import_leaves_jax_out():
         "import sdvar_tpu_torch.tools.bench_train, sdvar_tpu_torch.tools.profile_train;"
         "import sdvar_tpu_torch.tools.adjudicate_mfu, sdvar_tpu_torch.tools.calib_pixels;"
         "import sdvar_tpu_torch.tools.train_pair, sdvar_tpu_torch.tools.probe_train_determinism;"
+        "import sdvar_tpu_torch.tools.probe_factored_pieces;"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sdvar_tpu')];"
         "assert not bad, bad"

@@ -1,8 +1,10 @@
 """The training path on the card (marked ``gpu``; skipped where there is no
 card): the attention Function (the kernel's forward, the ported backward)
-against autograd through ``attention_plain`` on the card, and one f32
+against autograd through ``attention_plain`` on the card, one f32
 training step of a tiny stack on the card against the same step on the
-CPU. Torch only, so that they run where JAX is absent:
+CPU, and the in-place optimizer at VAR-d16's width (its state in its own
+storage, bit-equal to the out-of-place formulas, its added peak at most
+the largest leaf). Torch only, so that they run where JAX is absent:
     python -m pytest tests/test_torch_train_gpu.py -q -m gpu -o addopts="" --noconftest
 """
 
@@ -91,8 +93,8 @@ def test_train_step_matches_the_cpu(cuda):
         -1, 1, (4, 3, 48, 48)).astype(np.float32))
     label = torch.tensor([0, 3, 5, 9])
     outs = []
-    for d in ("cpu", cuda):
-        state = T.init_train_state(T.tree_map(lambda t: t.to(d), p))
+    for d in ("cpu", cuda):  # copies: a step writes into its state
+        state = T.init_train_state(T.tree_map(lambda t: t.to(d, copy=True), p))
         v = T.tree_map(lambda t: t.to(d), vae)
         n0 = attention_kernel.launches
         state, m = T.train_step(vc, qc, state, v, img.to(d), label.to(d), 1e-4,
@@ -139,7 +141,8 @@ def test_autograd_collectives_at_one_rank_equal_no_mesh(cuda):
             assert PT.gather_from_model(x, 8) is x
             n0 = attention_kernel.launches
             timer = SpanTimer(cuda)
-            state, m = T.train_step(vc, qc, T.init_train_state(p), vae, img,
+            state, m = T.train_step(vc, qc, T.init_train_state(
+                T.tree_map(torch.clone, p)), vae, img,
                                     label, 1e-4, 0.05, None, label_smooth=0.1,
                                     dtype=torch.float32, timer=timer)
             outs.append((state, float(m["loss"]), attention_kernel.launches - n0,
@@ -151,3 +154,86 @@ def test_autograd_collectives_at_one_rank_equal_no_mesh(cuda):
     assert spans0 == spans1 == {"tokenize", "forward", "backward", "optimizer"}
     for (_, a), (_, b) in zip(T.tree_leaves(s0.params), T.tree_leaves(s1.params)):
         assert torch.equal(a, b)
+
+
+def _in_place_against_reference(p, kind, cuda):
+    """Two steps of ``apply_optimizer`` on ``p`` with random gradients,
+    the global norm given as ``train_step`` gives it: every leaf of the
+    parameters and the optimizer state keeps its storage, and the result
+    is bit-equal to the out-of-place formulas (``tests/optim_reference.py``)
+    on the card. Returns (the allocator's peak over what was allocated
+    when the second step started, the largest leaf's bytes)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import optim_reference as R
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    grads = T.tree_map(lambda t: torch.randn(t.shape, device=cuda, generator=g)
+                       * 1e-3, p)
+    state = T.init_opt_state(p, kind)
+    for _ in range(2):  # a second step: moments that are not zeros
+        norm = T.global_norm(grads)
+        want_p, want_o = R.apply_optimizer(
+            T.tree_map(torch.clone, p), T.tree_map(torch.clone, grads),
+            T.tree_map(torch.clone, state), 1e-4, 0.05, 2.0, kind, norm=norm)
+        ptrs = [t.data_ptr() for _, t in T.tree_leaves({"p": p, "o": state})]
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        T.apply_optimizer(p, grads, state, 1e-4, 0.05, 2.0, kind, norm=norm)
+        added = torch.cuda.max_memory_allocated() - start
+        assert ptrs == [t.data_ptr() for _, t in T.tree_leaves({"p": p, "o": state})]
+        for (path, a), (_, b) in zip(T.tree_leaves({"p": p, "o": state}),
+                                     T.tree_leaves({"p": want_p, "o": want_o})):
+            assert torch.equal(a, b), path
+        del want_p, want_o
+    return added, max(t.numel() * t.element_size() for _, t in T.tree_leaves(p))
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
+def test_optimizer_in_place_at_the_d16_width(cuda, kind):
+    """``apply_optimizer`` on VAR-d16's f32 parameters (C=1024, 16 stacked
+    layers; ``_in_place_against_reference``): the allocator's peak over
+    what is allocated when it starts is at most the largest leaf's bytes
+    with AdamW (three pieces' temporaries). The factored RMS takes its row
+    and column means over the whole leaf (over the strided axis, piece by
+    piece, they change their bits on the card:
+    ``tools/probe_factored_pieces``), so it holds one leaf's g^2 and the
+    workspace of CUDA's mean over the strided axis (partial sums of
+    outputs split over blocks; 144 MiB beside ``ada_lin_w``'s 384 MiB
+    g^2): at most twice the largest leaf."""
+    p = init_var_params(VARConfig(depth=16), seed=0, device=cuda)
+    added, largest = _in_place_against_reference(p, kind, cuda)
+    bound = largest if kind == "adamw" else 2 * largest
+    print(f"{kind}: the optimizer's added peak {added / 2 ** 20:.1f} MiB, "
+          f"bound {bound / 2 ** 20:.1f} MiB")
+    assert added <= bound, (added, bound)
+
+
+def test_factored_optimizer_at_the_d36_512_width(cuda):
+    """The factored RMS on the largest leaves of VAR-d36 512px (C=2304,
+    the stacked fc1_w (36, 2304, 9216) and fc2_w (36, 9216, 2304), 2.85
+    GiB each, whose means run one over the contiguous axis and one over
+    the strided one, and fc1_b), updated one layer at a time with their
+    means taken over the whole leaf: bit-equal to the out-of-place
+    formulas on the card, in its own storage, and its added peak (one
+    leaf's g^2 and the strided mean's workspace) at most twice the largest
+    leaf."""
+    from sdvar_tpu_torch.config import PATCH_NUMS_512
+
+    cfg = VARConfig(depth=36, patch_nums=PATCH_NUMS_512, shared_aln=True)
+    C, hidden, depth = cfg.embed_dim, cfg.mlp_hidden, cfg.depth
+    assert (C, hidden) == (2304, 9216)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = {"blocks": {k: torch.randn(s, device=cuda, generator=g) * 0.02
+                    for k, s in (("fc1_w", (depth, C, hidden)),
+                                 ("fc1_b", (depth, hidden)),
+                                 ("fc2_w", (depth, hidden, C)))}}
+    assert [len(T._pieces(p["blocks"][k])) for k in ("fc1_w", "fc2_w")] == [36, 36]
+    added, largest = _in_place_against_reference(p, "adafactor", cuda)
+    bound = 2 * largest
+    print(f"adafactor at d36-512: the optimizer's added peak "
+          f"{added / 2 ** 20:.1f} MiB, bound {bound / 2 ** 20:.1f} MiB")
+    assert added <= bound, (added, bound)

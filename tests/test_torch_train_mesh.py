@@ -249,12 +249,14 @@ def _rank_jax(job, inp):
         grads = MS.unshard_tree(T.tree_map(lambda _: next(it), leaves),
                                 MS.var_param_specs(var_cfg, mesh), mesh)
         losses, gnorms = [], []
+        ptrs = _storages(state)
         for _ in range(2):
             state, m = T.train_step(var_cfg, vae_cfg, state, vae, img, label,
                                     LR, WD, None, label_smooth=0.1, dtype=F32,
                                     optimizer=opt)
             losses.append(float(m["loss"]))
             gnorms.append(float(m["grad_norm"]))
+        kept = _storages(state) == ptrs
         specs = T.train_state_specs(state.params, var_cfg, mesh, opt)  # shards
         whole = MS.unshard_tree(_state_tree(state), {
             k: specs[k] for k in ("params", "opt_state")}, mesh)
@@ -263,7 +265,13 @@ def _rank_jax(job, inp):
     res = {f"w{k}": v for k, v in _flat(whole).items()}
     res.update({f"g{k}": v for k, v in _flat(grads).items()})
     res["loss"], res["grad_norm"] = np.array(losses), np.array(gnorms)
+    res["kept_storage"] = np.array(kept)
     return res
+
+
+def _storages(state):
+    """The data pointer of every leaf of a train state, by path."""
+    return {p: t.data_ptr() for p, t in T.tree_leaves(_state_tree(state))}
 
 
 def _rank_vae(job, inp):
@@ -279,14 +287,19 @@ def _rank_vae(job, inp):
         cfg = VQVAEConfig(**VAE_KW)
         st = VT.init_vae_train_state(cfg, _vae())
         rows = mesh.rows(inp["img"].shape[0])
+        ptrs = [t.data_ptr() for _, t in T.tree_leaves(
+            {"params": st.params, "ema": st.ema_hits_SV})]
         for i in range(VAE_STEPS):
             st, m = VT.vae_train_step(cfg, st, torch.from_numpy(inp["img"][rows]),
                                       1e-3)
-            res[f"ema{i}"] = st.ema_hits_SV.numpy()
+            # a copy: the next step writes into the tracker
+            res[f"ema{i}"] = st.ema_hits_SV.numpy().copy()
             res[f"usage{i}"] = m["usage_per_scale"].numpy()
             res[f"losses{i}"] = np.array([float(m[k]) for k in VAE_LOSSES])
     finally:
         PT.set_tp_mesh(None)
+    res["kept_storage"] = np.array(ptrs == [t.data_ptr() for _, t in T.tree_leaves(
+        {"params": st.params, "ema": st.ema_hits_SV})])
     res.update({f"p{k}": v for k, v in _flat(st.params).items()})
     return res
 
@@ -603,6 +616,17 @@ def test_train_step_on_a_mesh_matches_jax(ranks, tag):
     _close_steps(ranks[2][f"jax_adamw_{tag}"], ranks[1]["adamw"])
 
 
+@pytest.mark.parametrize("job", ["jax_adamw_1x2", "jax_adamw_2x1",
+                                 "jax_adafactor_1x2", "jax_adafactor_2x1",
+                                 "vae_2x1"])
+def test_mesh_steps_keep_the_state_storage(ranks, job):
+    """Each rank's train_step (the gradients averaged into themselves over
+    "data" on 2x1) and vae_train_step write the new state into the
+    state's own tensors: every leaf keeps its storage over two steps."""
+    for got in ranks[2][job]:
+        assert bool(got["kept_storage"])
+
+
 @pytest.mark.parametrize("tag", ["1x2", "2x1"])
 def test_factored_optimizer_on_a_mesh_matches_one_device(ranks, tag):
     """The factored RMS with split factored axes (qkv, fc1, 6C over their
@@ -677,7 +701,7 @@ def vae_whole():
     steps = []
     for _ in range(VAE_STEPS):
         st, m = VT.vae_train_step(cfg, st, img, 1e-3)
-        steps.append((st.ema_hits_SV.numpy(), m["usage_per_scale"].numpy(),
+        steps.append((st.ema_hits_SV.numpy().copy(), m["usage_per_scale"].numpy(),
                       np.array([float(m[k]) for k in VAE_LOSSES])))
     return steps, _flat(st.params)
 

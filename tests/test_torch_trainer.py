@@ -152,14 +152,21 @@ def _jax_steps(jcfg, jvae, p, vp, img, label, n, optimizer="adamw", **kw):
     return out
 
 
+def _copy(state):
+    """A copy of a train state: a step consumes the one it is given."""
+    return T.TrainState(T.tree_map(torch.clone, state.params),
+                        T.tree_map(torch.clone, state.opt_state), state.step)
+
+
 def _port_steps(cfg, tvp, state, img, label, n, optimizer="adamw", **kw):
+    """n steps from ``state`` (consumed), a copy of each step's state."""
     out = []
     for _ in range(n):
         state, m = T.train_step(cfg, VQVAEConfig(**VAE_KW), state, tvp,
                                 torch.from_numpy(img), torch.from_numpy(label),
                                 LR, WD, None, label_smooth=0.1,
                                 dtype=torch.float32, optimizer=optimizer, **kw)
-        out.append((state, {k: float(v) for k, v in m.items()}))
+        out.append((_copy(state), {k: float(v) for k, v in m.items()}))
     return out
 
 
@@ -211,7 +218,7 @@ def test_grad_accum_matches_the_full_batch(models):
     _, _, tvp, img, label = models
     _, cfg, p = _var()
     state = T.init_train_state(var_params_from_jax(p, device="cpu"))
-    full = _port_steps(cfg, tvp, state, img, label, 1)[0]
+    full = _port_steps(cfg, tvp, _copy(state), img, label, 1)[0]
     acc = _port_steps(cfg, tvp, state, img, label, 1, grad_accum=2)[0]
     assert abs(full[1]["loss"] - acc[1]["loss"]) <= 1e-5 * full[1]["loss"]
     for (path, a), (_, b) in zip(T.tree_leaves(acc[0].opt_state["mu"]),
@@ -247,11 +254,12 @@ def test_optimizer_matches_optax_on_factored_shapes():
         for g in grads:
             ju, jst = tx.update(g, jst, params)
             tg = {k: torch.from_numpy(v) for k, v in g.items()}
-            tg = T.clip_by_global_norm(tg, 2.0)
-            fn = T.adam_update if kind == "adamw" else T.factored_rms_update
-            tu, tst = fn(tg, tst)
+            # the update of zero parameters at lr 1 and no decay is -u
+            tp = {k: torch.zeros(s) for k, s in shapes.items()}
+            T.apply_optimizer(tp, tg, tst, 1.0, 0.0, clip=2.0, kind=kind,
+                              norm=T.global_norm(tg))
             for k in shapes:
-                _rel(tu[k], ju[k], 1e-5)
+                _rel(-tp[k], ju[k], 1e-5)
         assert int(tst["count"]) == 3
 
 

@@ -26,7 +26,7 @@ from sdvar_tpu_torch.config import VQVAEConfig
 from sdvar_tpu_torch.models import quantizer as Q
 from sdvar_tpu_torch.models.vqvae import init_vqvae_params
 from sdvar_tpu_torch.train import vae_trainer as VT
-from sdvar_tpu_torch.train.trainer import tree_leaves
+from sdvar_tpu_torch.train.trainer import tree_leaves, tree_map
 
 PNS = (1, 2, 3)
 
@@ -134,7 +134,8 @@ def test_vae_train_steps_match_jax(vae):
     cfg, jcfg = VQVAEConfig(**_kw()), JVQVAEConfig(**_kw())
     img = np.random.default_rng(1).uniform(-1, 1, (2, 3, 48, 48)).astype(np.float32)
     jst = JVT.init_vae_train_state(jcfg, jax.tree.map(jnp.asarray, np_params))
-    st = VT.init_vae_train_state(cfg, params)
+    # a step writes into its state: the module's parameters stay as made
+    st = VT.init_vae_train_state(cfg, tree_map(torch.clone, params))
     cb0 = params["quant"]["codebook"].clone()
     for i in range(3):
         jst, jm = JVT.vae_train_step(jcfg, jst, jnp.asarray(img),
