@@ -50,6 +50,7 @@ from sdvar_tpu_torch.ops.sampling import (
     sample_with_top_k_top_p,
 )
 from sdvar_tpu_torch.utils.device import full_f32, resolve_device
+from sdvar_tpu_torch.utils.profiling import span
 
 Seeds = Union[int, Sequence[int], torch.Tensor]
 Cache = Union[KVCache, QuantizedKVCache]
@@ -188,20 +189,24 @@ def decode_all_scales(
     """All scales -> f_hat (B, Cvae, HW, HW), optionally with the sampled
     ids (B, L) and the KV cache (pass it back as ``cache`` to reuse it).
     Under a mesh the rows are this rank's, or with ``gather`` the whole
-    batch's in request order (the cache stays this rank's)."""
-    state, sos, lvl_pos = init_decode(var_cfg, params, label_B, seed, dtype,
-                                      kv_mode=kv_mode, cache=cache,
-                                      device=device)
-    mods = M.precompute_modulations(var_cfg, params, sos)
-    ids_all = []
-    for si in range(var_cfg.num_scales):
-        state, ids = scale_step(var_cfg, vae_cfg, params, quant_params, si,
-                                state, sos, lvl_pos, samp, dtype, mods=mods)
-        ids_all.append(ids)
-    out = (gather_data(state.f_hat) if gather else state.f_hat,)
-    if return_ids:
-        ids = torch.cat(ids_all, dim=1)
-        out += (gather_data(ids) if gather else ids,)
+    batch's in request order (the cache stays this rank's). Spans:
+    ``sdvar.decode``, and under it ``sdvar.decode.scale`` a scale."""
+    with span("sdvar.decode"):
+        state, sos, lvl_pos = init_decode(var_cfg, params, label_B, seed,
+                                          dtype, kv_mode=kv_mode, cache=cache,
+                                          device=device)
+        mods = M.precompute_modulations(var_cfg, params, sos)
+        ids_all = []
+        for si in range(var_cfg.num_scales):
+            with span("sdvar.decode.scale", si=si):
+                state, ids = scale_step(var_cfg, vae_cfg, params, quant_params,
+                                        si, state, sos, lvl_pos, samp, dtype,
+                                        mods=mods)
+            ids_all.append(ids)
+        out = (gather_data(state.f_hat) if gather else state.f_hat,)
+        if return_ids:
+            ids = torch.cat(ids_all, dim=1)
+            out += (gather_data(ids) if gather else ids,)
     if return_cache:
         out += (state.cache,)
     return out if len(out) > 1 else out[0]
@@ -224,5 +229,6 @@ def generate_images(
     f_hat = decode_all_scales(var_cfg, vae_cfg, var_params,
                               vae_params["quant"], label_B, seed, samp, dtype,
                               kv_mode=kv_mode, device=device)
-    img = (VQ.fhat_to_img(vae_cfg, vae_params, f_hat) + 1.0) * 0.5
+    with span("sdvar.pixels"):
+        img = (VQ.fhat_to_img(vae_cfg, vae_params, f_hat) + 1.0) * 0.5
     return gather_data(img) if gather else img

@@ -37,6 +37,15 @@ each data group decodes its slice of the batch, and each rank delivers
 the requests whose rows it holds, so every request is delivered once per
 data group (query a request on a rank that holds its slot:
 slot // (bucket / data) == the rank's data index).
+
+Spans (``utils.profiling``), a batch's with its ``batch`` number:
+``sdvar.serve.coalesce`` (the first request taken until the batch closes),
+``sdvar.serve.dispatch`` (the decode, the pixels ``sdvar.pixels`` and the
+queued copy), ``sdvar.serve.handoff`` (blocked on the delivery queue),
+``sdvar.serve.device`` (the delivery thread waiting for the batch's copy),
+``sdvar.serve.deliver`` (the host copy and the results posted); and a
+request's ``sdvar.serve.queue``, from its submit to its batch's dispatch,
+with its ``rid`` and ``batch``.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ from sdvar_tpu_torch.parallel.mesh import (
     var_param_specs,
 )
 from sdvar_tpu_torch.utils.device import resolve_device
+from sdvar_tpu_torch.utils.profiling import mark, span
 
 
 # what rank 0 broadcasts after each poll of a mesh server's queue
@@ -86,14 +96,14 @@ class Request:
     label: int
     seed: int
     id: int = -1
-    submit_t: float = field(default_factory=time.time)
+    submit_t: float = field(default_factory=time.perf_counter)
 
 
 @dataclass
 class Result:
     id: int
     image: Optional[np.ndarray]  # (3, H, W) f32 in [0, 1] or uint8; None on failure
-    latency_s: float
+    latency_s: float             # submit to delivery, on time.perf_counter
     batch_size: int
     error: Optional[str] = None  # failure payload (exception type: message)
 
@@ -200,6 +210,7 @@ class GenerationServer:
         self.stats = {"completed": 0, "batches": 0, "occupancy_sum": 0.0}
         # updated from both threads
         self._stats_lock = threading.Lock()
+        self._batches_formed = 0  # the scheduler thread's batch numbers
 
     # -- public API ---------------------------------------------------------
 
@@ -253,15 +264,16 @@ class GenerationServer:
         except queue.Empty:
             return []
         batch = [first]
-        deadline = time.time() + self.max_wait
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.time()
-            if remaining <= 0:
-                break
-            try:
-                batch.append(self._q.get(timeout=remaining))
-            except queue.Empty:
-                break
+        with span("sdvar.serve.coalesce", batch=self._batches_formed):
+            deadline = time.time() + self.max_wait
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._q.get(timeout=remaining))
+                except queue.Empty:
+                    break
         return batch
 
     def _agree(self) -> Optional[List[Request]]:
@@ -319,8 +331,22 @@ class GenerationServer:
             return VQ.fhat_to_img_nhwc(self.vae_cfg, self.vae_params, f_hat)
         return VQ.fhat_to_img(self.vae_cfg, self.vae_params, f_hat)
 
-    @torch.inference_mode()
     def _run_batch(self, batch: List[Request]):
+        bid = self._batches_formed
+        self._batches_formed += 1
+        begin = time.perf_counter_ns()
+        for r in batch:
+            mark("sdvar.serve.queue", int(r.submit_t * 1e9), begin, rid=r.id,
+                 batch=bid)
+        with span("sdvar.serve.dispatch", batch=bid):
+            item = self._dispatch(batch)
+        with span("sdvar.serve.handoff", batch=bid):
+            self._deliver_q.put(item + (bid,))
+
+    @torch.inference_mode()
+    def _dispatch(self, batch: List[Request]):
+        """Queue the batch's decode, pixels and copy on the card; returns
+        what the delivery thread needs."""
         bsz = self._bucket_for(len(batch))
         labels = torch.zeros(bsz, dtype=torch.long)
         seeds = torch.zeros(bsz, dtype=torch.long)
@@ -343,7 +369,8 @@ class GenerationServer:
                 kv_mode=self.kv_mode, cache=self._cache(bsz),
                 return_cache=True, device=self.device)
             self._caches[bsz] = cache
-        imgs = (self._pixels(f_hat) + 1.0) * 0.5
+        with span("sdvar.pixels"):
+            imgs = (self._pixels(f_hat) + 1.0) * 0.5
         if self.deliver == "u8":
             imgs = torch.clamp(imgs * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
         lo = data_rows(bsz).start  # the slot of this rank's first row
@@ -357,30 +384,32 @@ class GenerationServer:
             done = torch.cuda.Event()
             done.record()
             imgs = host
-        self._deliver_q.put((batch, imgs, done, bsz, lo))
+        return batch, imgs, done, bsz, lo
 
     def _deliver(self, batch: List[Request], imgs: torch.Tensor, done, bsz: int,
-                 lo: int):
+                 lo: int, bid: int):
         """Hand out the images of the batch's slots [lo, lo + len(imgs)),
         the rows this rank holds (all of them without a mesh)."""
         if done is not None:
-            done.synchronize()  # a fault of the batch's device work raises here
-        arr = imgs.numpy().copy()  # the pinned buffer goes back to its pool
-        now = time.time()
-        mine = batch[lo:lo + arr.shape[0]]
-        with self._results_cv:
-            for i, r in enumerate(mine):
-                self._results[r.id] = Result(
-                    id=r.id, image=arr[i], latency_s=now - r.submit_t,
-                    batch_size=bsz)
-            self._results_cv.notify_all()
-        with self._stats_lock:
-            self.stats["completed"] += len(mine)
-            self.stats["batches"] += 1
-            self.stats["occupancy_sum"] += len(batch) / bsz
+            with span("sdvar.serve.device", batch=bid):
+                done.synchronize()  # a fault of the batch's device work raises here
+        with span("sdvar.serve.deliver", batch=bid):
+            arr = imgs.numpy().copy()  # the pinned buffer goes back to its pool
+            now = time.perf_counter()
+            mine = batch[lo:lo + arr.shape[0]]
+            with self._results_cv:
+                for i, r in enumerate(mine):
+                    self._results[r.id] = Result(
+                        id=r.id, image=arr[i], latency_s=now - r.submit_t,
+                        batch_size=bsz)
+                self._results_cv.notify_all()
+            with self._stats_lock:
+                self.stats["completed"] += len(mine)
+                self.stats["batches"] += 1
+                self.stats["occupancy_sum"] += len(batch) / bsz
 
     def _fail(self, batch: List[Request], err: str):
-        now = time.time()
+        now = time.perf_counter()
         with self._results_cv:
             for r in batch:
                 self._results[r.id] = Result(

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from sdvar_tpu_torch.ops.kernels import _build
+from sdvar_tpu_torch.utils.profiling import launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -249,11 +250,12 @@ def attention_kernel(q, k, v, bias: Optional[torch.Tensor], scale: float,
     plan = _plan(B, Lq, Lk, H, hd, q.dtype, kv_dtype)
     out = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=q.device)
     ptrs += [bias.data_ptr() if bias is not None else None, out.data_ptr()]
-    err = _lib(int8)(
-        *ptrs, _DTYPES[q.dtype], B, Lq, Lk, H, hd, *strides, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream, plan["warpgroups"],
-        plan["stages"],
-    )
+    with launch("sdvar.launch.attention" + ("_int8" if int8 else "")):
+        err = _lib(int8)(
+            *ptrs, _DTYPES[q.dtype], B, Lq, Lk, H, hd, *strides, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+            plan["warpgroups"], plan["stages"],
+        )
     if err != 0:
         raise RuntimeError(f"attention_kernel: launch failed with cudaError {err}")
     if int8:
@@ -448,17 +450,18 @@ def _cache_launch(name, q, cache_k, cache_v, li, kv_len, bias, scale,
     plan = _plan(B, Lq, kv_len, H, hd, q.dtype, cache_k.dtype,
                  write=write is not None)
     out = torch.empty((B, Lq, H, hd), dtype=q.dtype, device=dev)
-    err = _cache_lib()(
-        q.data_ptr(), _layer_ptr(cache_k, li), _layer_ptr(cache_v, li),
-        _layer_ptr(cks, li) if int8 else None,
-        _layer_ptr(cvs, li) if int8 else None, *new_ptrs,
-        bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        _CODES[q.dtype], _CODES[cache_k.dtype], int(write is not None),
-        B, Lq, kv_len, split, H, hd, q.stride(0), q.stride(1),
-        cache_k.stride(1), cache_k.stride(2), *s_strides, *new_strides,
-        float(scale), torch.cuda.current_stream(dev).cuda_stream,
-        plan["warpgroups"], plan["stages"],
-    )
+    with launch("sdvar.launch." + name.removesuffix("_kernel")):
+        err = _cache_lib()(
+            q.data_ptr(), _layer_ptr(cache_k, li), _layer_ptr(cache_v, li),
+            _layer_ptr(cks, li) if int8 else None,
+            _layer_ptr(cvs, li) if int8 else None, *new_ptrs,
+            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            _CODES[q.dtype], _CODES[cache_k.dtype], int(write is not None),
+            B, Lq, kv_len, split, H, hd, q.stride(0), q.stride(1),
+            cache_k.stride(1), cache_k.stride(2), *s_strides, *new_strides,
+            float(scale), torch.cuda.current_stream(dev).cuda_stream,
+            plan["warpgroups"], plan["stages"],
+        )
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")
     return out

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from sdvar_tpu_torch.ops.kernels import _build
+from sdvar_tpu_torch.utils.profiling import launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -157,11 +158,13 @@ def conv3x3_s8_kernel(x8: torch.Tensor, wk: torch.Tensor, scale: torch.Tensor,
     args = (x8.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             out.data_ptr(), _DTYPES[out_dtype], B, H, W, C, O)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if plan["path"] == "tma":
-        err = _lib("sdvar_conv3x3_s8_tma")(*args, plan["box_w"], plan["box_h"],
-                                           plan["grid"], stream)
-    else:
-        err = _lib("sdvar_conv3x3_s8")(*args, stream)
+    with launch("sdvar.launch.conv_s8"):
+        if plan["path"] == "tma":
+            err = _lib("sdvar_conv3x3_s8_tma")(*args, plan["box_w"],
+                                               plan["box_h"], plan["grid"],
+                                               stream)
+        else:
+            err = _lib("sdvar_conv3x3_s8")(*args, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_s8_kernel: launch failed with cudaError {err}")
     conv3x3_s8_kernel.launches += 1

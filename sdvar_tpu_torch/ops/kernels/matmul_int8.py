@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from sdvar_tpu_torch.ops.kernels import _build
+from sdvar_tpu_torch.utils.profiling import launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -213,11 +214,12 @@ def int8_matmul_kernel(x: torch.Tensor, q: torch.Tensor,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
-    err = _lib()(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                 _DTYPES[x.dtype], M, N, K, x.stride(0),
-                 torch.cuda.current_stream(x.device).cuda_stream,
-                 plan["warpgroups"], plan["block_n"], plan["stages"],
-                 plan["splits"])
+    with launch("sdvar.launch.int8_matmul"):
+        err = _lib()(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                     _DTYPES[x.dtype], M, N, K, x.stride(0),
+                     torch.cuda.current_stream(x.device).cuda_stream,
+                     plan["warpgroups"], plan["block_n"], plan["stages"],
+                     plan["splits"])
     if err != 0:
         raise RuntimeError(f"int8_matmul_kernel: launch failed with cudaError {err}")
     int8_matmul_kernel.launches += 1

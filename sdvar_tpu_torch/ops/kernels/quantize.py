@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from sdvar_tpu_torch.ops.kernels import _build
+from sdvar_tpu_torch.utils.profiling import launch
 
 
 def _act_rows(x: torch.Tensor, bias: Optional[torch.Tensor], gelu: bool
@@ -215,13 +216,16 @@ def _launch(x: torch.Tensor, bias: Optional[torch.Tensor], gelu: bool,
         if vector and bias is not None and bias.data_ptr() % VECTOR_BYTES:
             bias = bias.clone()
         plan = quant_plan(M, K, x2.dtype, vector)
-        err = _lib()(x2.data_ptr(), None if bias is None else bias.data_ptr(),
-                     None if q is None else q.data_ptr(), s.data_ptr(), xd,
-                     1 if bias is None else _DTYPES[bias.dtype], M, K, xs,
-                     1 if gelu else 0,
-                     2 if scale is not None else (0 if store_q else 1),
-                     plan["group"], plan["nv"], int(vector), plan["threads"],
-                     plan["grid"], torch._C._cuda_getCurrentRawStream(dev))
+        with launch("sdvar.launch.act_quant"):
+            err = _lib()(x2.data_ptr(),
+                         None if bias is None else bias.data_ptr(),
+                         None if q is None else q.data_ptr(), s.data_ptr(), xd,
+                         1 if bias is None else _DTYPES[bias.dtype], M, K, xs,
+                         1 if gelu else 0,
+                         2 if scale is not None else (0 if store_q else 1),
+                         plan["group"], plan["nv"], int(vector),
+                         plan["threads"], plan["grid"],
+                         torch._C._cuda_getCurrentRawStream(dev))
         if err != 0:
             raise RuntimeError(f"act_quantize_kernel: launch failed with "
                                f"cudaError {err}")

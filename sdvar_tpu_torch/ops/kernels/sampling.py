@@ -47,6 +47,7 @@ from typing import Optional
 import torch
 
 from sdvar_tpu_torch.ops.kernels import _build
+from sdvar_tpu_torch.utils.profiling import launch
 
 LINEAR_BINS = (32, 64)       # the select's coarse bins and fine bins in each
 CANDIDATES = 128             # a fine bin of at most this many is ranked directly
@@ -243,10 +244,11 @@ def sample_kernel(logits: torch.Tensor, row_seeds: Optional[torch.Tensor],
     ids = torch.empty((M,), dtype=torch.int32, device=device)
     mask = (torch.empty((M, V), dtype=torch.int8, device=device)
             if return_mask else None)
-    err = _lib()(logits.data_ptr(), seeds_ptr, noise_ptr, ids.data_ptr(),
-                 None if mask is None else mask.data_ptr(), M, V, int(top_k),
-                 float(top_p), plan["threads"],
-                 torch._C._cuda_getCurrentRawStream(device.index))
+    with launch("sdvar.launch.sampler"):
+        err = _lib()(logits.data_ptr(), seeds_ptr, noise_ptr, ids.data_ptr(),
+                     None if mask is None else mask.data_ptr(), M, V,
+                     int(top_k), float(top_p), plan["threads"],
+                     torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"sample_kernel: launch failed with cudaError {err}")
     sample_kernel.launches += 1

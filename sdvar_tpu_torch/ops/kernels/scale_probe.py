@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from sdvar_tpu_torch.ops.kernels import _build
+from sdvar_tpu_torch.utils.profiling import launch
 
 
 def scale_probe_plain(x: torch.Tensor) -> torch.Tensor:
@@ -55,8 +56,9 @@ def scale_probe_kernel(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     n = x.numel()
     if n:
-        err = _lib()(x.data_ptr(), out.data_ptr(), n,
-                     torch._C._cuda_getCurrentRawStream(x.get_device()))
+        with launch("sdvar.launch.scale_probe"):
+            err = _lib()(x.data_ptr(), out.data_ptr(), n,
+                         torch._C._cuda_getCurrentRawStream(x.get_device()))
         if err != 0:
             raise RuntimeError(f"scale_probe_kernel: launch failed with "
                                f"cudaError {err}")

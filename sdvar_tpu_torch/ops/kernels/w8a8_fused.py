@@ -36,6 +36,7 @@ import torch
 from sdvar_tpu_torch.ops.kernels import _build
 from sdvar_tpu_torch.ops.kernels.quantize import act_quantize_plain
 from sdvar_tpu_torch.utils.device import full_f32
+from sdvar_tpu_torch.utils.profiling import launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_M, TILE_N = 256, 160  # an output tile: two consumer warpgroups x 128 rows
@@ -143,10 +144,12 @@ def w8a8_fused_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         scratch = torch.empty((plan["scratch_bytes"] + ALIGN,), dtype=torch.uint8,
                               device=x.device)
         base = scratch.data_ptr()
-        err = _lib()(x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                     _DTYPES[x2.dtype], int(bool(s8)), M, N, K, x2.stride(0),
-                     base + (-base) % ALIGN, plan["grid"],
-                     torch.cuda.current_stream(x.device).cuda_stream)
+        with launch("sdvar.launch.w8a8_fused"):
+            err = _lib()(x2.data_ptr(), q.data_ptr(), s.data_ptr(),
+                         out.data_ptr(), _DTYPES[x2.dtype], int(bool(s8)), M,
+                         N, K, x2.stride(0), base + (-base) % ALIGN,
+                         plan["grid"],
+                         torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"w8a8_fused_kernel: launch failed with "
                                f"cudaError {err}")

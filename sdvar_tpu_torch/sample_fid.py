@@ -37,6 +37,7 @@ from sdvar_tpu_torch.models.var import KVCache, init_var_params
 from sdvar_tpu_torch.ops.quantization import QuantizedKVCache, quantize_var_params
 from sdvar_tpu_torch.utils.device import resolve_device
 from sdvar_tpu_torch.utils.fid import create_npz_from_arrays, save_sample_pngs
+from sdvar_tpu_torch.utils.profiling import span
 from sdvar_tpu_torch.utils.torch_port import (
     var_params_from_torch,
     vqvae_params_from_torch,
@@ -88,7 +89,11 @@ def sample_batches(var_cfg: VARConfig, vae_cfg: VQVAEConfig, var_params,
     waits on that event alone and hands the host array over, so the
     consumer's packing (npz, PNG) overlaps both the next batch's decode and
     this batch's copy. Sample ``i`` runs with seed ``seed0 + i``. An
-    exception in either thread is raised to the consumer."""
+    exception in either thread is raised to the consumer. Spans a batch
+    (``batch``: its offset): ``sdvar.fid.dispatch`` (the decode, the pixel
+    decode ``sdvar.pixels`` and the queued copy), ``sdvar.fid.backpressure``
+    (the dispatcher blocked on a full queue), ``sdvar.fid.materialize``
+    (the wait for the copy's event and the host copy)."""
     dev = resolve_device(device)
     if kv_mode == "int8":
         cache = QuantizedKVCache.create(var_cfg, 2 * batch, device=dev)
@@ -111,19 +116,25 @@ def sample_batches(var_cfg: VARConfig, vae_cfg: VQVAEConfig, var_params,
             keep = len(chunk)
             chunk = np.concatenate([chunk, np.zeros(batch - keep, np.int64)])
             seeds = (seed0 + off + torch.arange(batch, dtype=torch.int64)) & _MASK32
-            f_hat, cache = decode_all_scales(
-                var_cfg, vae_cfg, var_params, vae_params["quant"],
-                torch.from_numpy(chunk), seeds, samp, dtype, kv_mode=kv_mode,
-                cache=cache, return_cache=True, device=dev)
-            img = (to_img(vae_cfg, vae_params, f_hat) + 1.0) * 0.5
-            event = None
-            if img.is_cuda:
-                host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
-                host.copy_(img, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                img = host
-            if not _put(device_q, (img, event, keep, off + keep), stop):
+            with span("sdvar.fid.dispatch", batch=off):
+                f_hat, cache = decode_all_scales(
+                    var_cfg, vae_cfg, var_params, vae_params["quant"],
+                    torch.from_numpy(chunk), seeds, samp, dtype,
+                    kv_mode=kv_mode, cache=cache, return_cache=True,
+                    device=dev)
+                with span("sdvar.pixels", batch=off):
+                    img = (to_img(vae_cfg, vae_params, f_hat) + 1.0) * 0.5
+                event = None
+                if img.is_cuda:
+                    host = torch.empty(img.shape, dtype=img.dtype,
+                                       pin_memory=True)
+                    host.copy_(img, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    img = host
+            with span("sdvar.fid.backpressure", batch=off):
+                put = _put(device_q, (img, event, keep, off + keep), stop)
+            if not put:
                 return
         _put(device_q, None, stop)
 
@@ -137,9 +148,11 @@ def sample_batches(var_cfg: VARConfig, vae_cfg: VQVAEConfig, var_params,
                 _put(host_q, item, stop)
                 return
             img, event, keep, done = item
-            if event is not None:
-                event.synchronize()  # a fault of the batch's work raises here
-            _put(host_q, (img.numpy()[:keep].copy(), done), stop)
+            with span("sdvar.fid.materialize", batch=done - keep):
+                if event is not None:
+                    event.synchronize()  # a fault of the batch's work raises here
+                arr = img.numpy()[:keep].copy()
+            _put(host_q, (arr, done), stop)
 
     def guarded(fn, out_q):
         def run():

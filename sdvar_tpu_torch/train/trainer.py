@@ -62,6 +62,7 @@ from sdvar_tpu_torch.ops.partition import (
 )
 from sdvar_tpu_torch.parallel.mesh import MODEL_QKV, shard_tree, var_param_specs
 from sdvar_tpu_torch.train.schedule import NOWD_KEYS
+from sdvar_tpu_torch.utils import profiling
 from sdvar_tpu_torch.utils.device import full_f32
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8
@@ -566,14 +567,21 @@ def train_step(
     deterministic). On a mesh, img and label_B are this rank's rows and
     ``state`` its shard. ``timer``: a ``utils.profiling.SpanTimer`` that
     gets the spans tokenize, forward, backward, data all-reduce and
-    optimizer. The step consumes ``state``, as the JAX step's donated
+    optimizer; the same spans, named ``sdvar.train.<span>``, go to
+    ``utils.profiling.span`` (recorded under a profiler). The step consumes ``state``, as the JAX step's donated
     state: it returns a ``TrainState`` of the same tensors, updated, with
     ``step + 1`` (copy the state first to keep the one from before), and
     the metrics, device scalars: ``METRICS`` plus loss, grad_norm (before
     clipping), lr and wd."""
     layout = mesh_layout(var_cfg)
-    span = timer.span if timer is not None else (
-        lambda name: contextlib.nullcontext())
+
+    @contextlib.contextmanager
+    def span(name):
+        with profiling.span("sdvar.train." + name), (
+                timer.span(name) if timer is not None
+                else contextlib.nullcontext()):
+            yield
+
     leaves = tree_map(lambda t: t.detach().requires_grad_(), state.params)
     flat = [t for _, t in tree_leaves(leaves)]
 

@@ -104,6 +104,10 @@ GAPS = {
     ("sdvar_tpu/train/trainer.py", "make_optimizer"):
         "an optax transform; the port's optimizer is apply_optimizer (clip, "
         "then adam_update or factored_rms_update)",
+    ("sdvar_tpu/utils/profiling.py", "annotate"):
+        "a named region of the trace; the port's span opens the same "
+        "profiler and NVTX ranges and also records the span while a "
+        "profiler runs",
     ("tools/tpu_sweep.py", None):
         "a TPU sweep of XLA flags and Pallas tiles: nothing of it runs on a "
         "CUDA card (ROADMAP.md)",

@@ -5,7 +5,7 @@ raise on NaN or inf (the probe names the bad gradient leaf), the RNG
 fingerprint, anomaly mode, and ``run_training``'s ``dbg_nan`` stopping on
 poisoned parameters with the bad leaf named; ``SpanTimer`` on the host
 clock and through ``train_step``'s spans, ``trace`` writing a Chrome trace
-with an ``annotate`` region, ``memory_stats`` on the CPU.
+with a recorded ``span``, ``memory_stats`` on the CPU.
 """
 
 import json
@@ -154,8 +154,9 @@ def test_span_timer_on_the_host_clock():
 
 
 def test_train_step_spans(tmp_path):
-    """One train_step with a timer: tokenize, forward, backward and
-    optimizer once each (no data all-reduce without a mesh)."""
+    """One train_step with a timer, under a profiler: tokenize, forward,
+    backward and optimizer once each (no data all-reduce without a mesh),
+    in the timer and, as ``sdvar.train.<span>``, in the span recorder."""
     from sdvar_tpu_torch.models.var import init_var_params
     from sdvar_tpu_torch.models.vqvae import init_vqvae_params
     from sdvar_tpu_torch.train import trainer as T
@@ -165,21 +166,27 @@ def test_train_step_spans(tmp_path):
     vae = init_vqvae_params(vae_cfg, seed=0, device="cpu")
     img = torch.zeros(2, 3, 32, 32)
     t = prof.SpanTimer("cpu")
-    T.train_step(var_cfg, vae_cfg, state, vae, img, torch.tensor([1, 2]), 1e-4,
-                 0.05, None, dtype=torch.float32, timer=t)
+    with prof.trace(str(tmp_path)):
+        T.train_step(var_cfg, vae_cfg, state, vae, img, torch.tensor([1, 2]),
+                     1e-4, 0.05, None, dtype=torch.float32, timer=t)
     rep = t.report()
-    assert set(rep) == {"tokenize", "forward", "backward", "optimizer"}
+    names = {"tokenize", "forward", "backward", "optimizer"}
+    assert set(rep) == names
     assert all(r["count"] == 1 for r in rep.values())
+    assert sorted(s.name for s in prof.spans()) \
+        == sorted("sdvar.train." + n for n in names)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with prof.trace(str(tmp_path)):
-        with prof.annotate("sdvar_region"):
+        with prof.span("sdvar_region", batch=1):
             torch.ones(32, 32) @ torch.ones(32, 32)
     path = os.path.join(str(tmp_path), prof.TRACE_FILE)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "sdvar_region" for e in events)
+    assert [(s.name, s.ids) for s in prof.spans()] == [("sdvar_region",
+                                                        {"batch": 1})]
 
 
 def test_memory_stats_on_the_cpu():
