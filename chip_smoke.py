@@ -69,6 +69,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1089,6 +1090,62 @@ def _want(**counts):
     return {**{k: 0 for k in _read_counts()}, **counts}
 
 
+# the port's kernels as the device trace names them (their ``__global__``
+# names in csrc/*.cu), by the launch counter that counts them
+_PORT_KERNELS = (("act_quantize_kernel", "act_quantize"),
+                 ("int8_matmul_wgmma_kernel", "int8_matmul"),
+                 ("sample_kernel", "sampler"),
+                 ("conv3x3_s8", "conv3x3_s8"),
+                 ("w8a8_fused_kernel", "w8a8_fused"),
+                 ("scale_probe_kernel", "scale_probe"))
+
+
+def _kernel_counter(name):
+    """The launch counter a device kernel's name belongs to, or None. The
+    attention kernels are ``attention_{mma,f32}_kernel<HD, KC, WRITE>``:
+    KC ``signed char`` for an int8 cache, WRITE true for the cache-write
+    form (the cache-read form, row 7, on none of the paths counted so,
+    reads as ``attention``)."""
+    att = re.search(r"attention_(?:mma|f32)_kernel<([^>]*)>", name)
+    if att:
+        args = att.group(1)
+        base = "cache_write" if args.replace(" ", "").endswith("true") \
+            else "attention"
+        return base + ("_int8" if "char" in args else "")
+    for key, counter in _PORT_KERNELS:
+        if key in name:
+            return counter
+    return None
+
+
+def _device_counts(fn):
+    """``fn()`` under ``torch.profiler`` (every thread) -> (its result, the
+    port's kernels that ran on the card, counted by name in the device
+    trace and keyed as ``_read_counts``). A replayed CUDA graph's kernel
+    nodes are in the trace, though no launch counter ticks for them."""
+    try:
+        cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        cfg = None
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        experimental_config=cfg)
+    prof.start()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    counts = {k: 0 for k in _read_counts()}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            counter = _kernel_counter(e.name())
+            if counter is not None:
+                counts[counter] += 1
+    return out, counts
+
+
 def _time_decodes(name, var_cfg, vae_cfg, params, vae, samp, batch, kv_mode,
                   pixels, tag):
     """Best of 3 latent decodes (and pixel decodes), every run printed."""
@@ -1310,23 +1367,54 @@ def _check_results(results, tag):
                                  f"{r.image.shape} {r.image.dtype}")
 
 
+def _serve_warm(srv, requests, tag, per_batch, graphed):
+    """The server's first batches, which capture the bucket's CUDA graphs:
+    counts set to 0 just before, read just after. The ``graphed`` kernels
+    (the block stack's) tick once, at the capture; the others
+    ``per_batch`` for each batch run."""
+    b0 = srv.stats["batches"]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    warm, _ = _serve(srv, requests)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _check_results(warm, tag)
+    nb = srv.stats["batches"] - b0
+    want = {k: graphed.get(k, per_batch.get(k, 0) * nb) for k in launches}
+    log(f"[{tag}] warm-up bucket of {len(requests)}: {time.time() - t0:.1f} s, "
+        f"{nb} batches; kernel launches (the graphs' captured once) "
+        f"{launches}")
+    if launches != want:
+        raise AssertionError(f"[{tag}] warm-up launch counts {launches} != "
+                             f"{want}")
+
+
 def _serve_measured(srv, requests, tag, per_batch):
-    """Drive the server's path once: counts set to 0 just before, read just
-    after; assert ``per_batch`` launches for each batch run; print
-    delivered img/s, p50/p95 latency, occupancy, peak memory."""
+    """Drive the server's path once, under ``torch.profiler``: counts set
+    to 0 just before, read just after. Each batch replays the bucket's
+    graphs, so the device trace must hold ``per_batch`` kernels of the
+    port for each batch run, and the launch counters those of them that
+    run outside the graphs (the head's, the sampler's, the pixel
+    decoder's); print delivered img/s (under the profiler), p50/p95
+    latency, occupancy, peak memory."""
     b0, occ0 = srv.stats["batches"], srv.stats["occupancy_sum"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    results, wall = _serve(srv, requests)
-    torch.cuda.synchronize()
+    (results, wall), ran = _device_counts(lambda: _serve(srv, requests))
     launches = _read_counts()
     _check_results(results, tag)
     nb = srv.stats["batches"] - b0
     want = {k: per_batch.get(k, 0) * nb for k in launches}
-    log(f"[{tag}] kernel launches over {nb} batches: {launches}")
-    if launches != want:
-        raise AssertionError(f"[{tag}] launch counts {launches} != {want}")
+    eager = {k: want[k] if k in ("int8_matmul", "sampler", "conv3x3_s8")
+             else 0 for k in launches}
+    log(f"[{tag}] over {nb} batches: the port's kernels in the device "
+        f"trace {ran}; launches counted on the host {launches}")
+    if ran != want:
+        raise AssertionError(f"[{tag}] device kernels {ran} != {want}")
+    if launches != eager:
+        raise AssertionError(f"[{tag}] launch counts {launches} != {eager}")
     lat = sorted(r.latency_s * 1e3 for r in results)
     occ = (srv.stats["occupancy_sum"] - occ0) / nb
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1426,17 +1514,15 @@ def phase_serving(name):
                            max_wait_ms=20.0, dtype=torch.bfloat16,
                            kv_mode="int8", pixel_sites=sites, deliver="u8")
     srv.start()
+    S = len(PNS)
+    per_batch = {"attention_int8": S * DEPTH, "act_quantize": 4 * S * DEPTH,
+                 "int8_matmul": S, "sampler": S, "conv3x3_s8": 8}
     try:
-        t0 = time.time()
-        warm, _ = _serve(srv, [(i, 1000 + i) for i in range(SERVE_B)])
-        _check_results(warm, "serve int8")
-        log(f"[serve int8] warm-up bucket of {SERVE_B}: {time.time() - t0:.1f} s")
+        _serve_warm(srv, [(i, 1000 + i) for i in range(SERVE_B)], "serve int8",
+                    per_batch, {"attention_int8": S * DEPTH,
+                                "act_quantize": 4 * S * DEPTH})
         reqs = [((i * 37) % 1000, 10_000 + i) for i in range(3 * SERVE_B)]
-        S = len(PNS)
-        results, launches = _serve_measured(
-            srv, reqs, "serve int8",
-            {"attention_int8": S * DEPTH, "act_quantize": 4 * S * DEPTH,
-             "int8_matmul": S, "sampler": S, "conv3x3_s8": 8})
+        results, launches = _serve_measured(srv, reqs, "serve int8", per_batch)
         # the same (label, seed) pairs again, 16 of them drawn from all
         # three batches, in another order and composition
         pick = [47, 3, 30, 12, 25, 40, 8, 19, 33, 1, 44, 16, 27, 6, 38, 21]
@@ -1461,12 +1547,13 @@ def phase_serving(name):
                            max_wait_ms=20.0, dtype=torch.bfloat16,
                            deliver="u8")
     srv.start()
+    per_batch = {"attention": S * DEPTH, "sampler": S}
     try:
-        warm, _ = _serve(srv, [(i, 2000 + i) for i in range(SERVE_B)])
-        _check_results(warm, "serve bf16")
+        _serve_warm(srv, [(i, 2000 + i) for i in range(SERVE_B)], "serve bf16",
+                    per_batch, {"attention": S * DEPTH})
         _serve_measured(srv, [((i * 53) % 1000, 20_000 + i)
                               for i in range(2 * SERVE_B)], "serve bf16",
-                        {"attention": len(PNS) * DEPTH, "sampler": len(PNS)})
+                        per_batch)
     finally:
         srv.stop()
     del params, vae, srv
@@ -2424,7 +2511,10 @@ def phase_sample_fid(name):
     """The FID sampler at VAR-d30 256px, bf16 weights: 32 class-balanced
     samples in batches of B=16 with the golden f32 pixel decoder, packed
     into an npz in a temporary directory, read back as uint8 (32, 256, 256,
-    3); per batch 300 attention and 10 sampler launches."""
+    3), the run under ``torch.profiler``. The first batch captures the
+    scales' graphs and replays them, the second replays them: the device
+    trace holds 300 attention and 10 sampler kernels a batch, and the
+    attention launch counter ticks 300 times in all, at the capture."""
     var_cfg, vae_cfg = VARConfig(depth=DEPTH), VQVAEConfig()
     samp = SamplingConfig(cfg=1.5, top_k=900, top_p=0.96)
     params = init_var_params(var_cfg, seed=0, device=DEV, dtype=torch.bfloat16)
@@ -2435,23 +2525,30 @@ def phase_sample_fid(name):
         torch.cuda.synchronize()
         _reset_counts()
         t0 = time.time()
-        batches = sample_batches(var_cfg, vae_cfg, params, vae, labels, B, samp,
-                                 log_every=1)
-        try:
-            create_npz_from_arrays(batches, out, num=len(labels))
-        finally:
-            batches.close()
+
+        def sample():
+            batches = sample_batches(var_cfg, vae_cfg, params, vae, labels, B,
+                                     samp, log_every=1)
+            try:
+                create_npz_from_arrays(batches, out, num=len(labels))
+            finally:
+                batches.close()
+
+        _, ran = _device_counts(sample)
         wall = time.time() - t0
-        torch.cuda.synchronize()
         launches = _read_counts()
         arr = np.load(out)["arr_0"]
     S = len(PNS)
-    want = _want(attention=2 * S * DEPTH, sampler=2 * S)
+    want_ran = _want(attention=2 * S * DEPTH, sampler=2 * S)
+    want = _want(attention=S * DEPTH, sampler=2 * S)
     log(f"[fid] {name}: {len(labels)} samples, B={B}, f32 pixels, into an npz "
-        f"in {wall:.3f} s: {len(labels) / wall:.2f} img/s end to end; npz "
-        f"{arr.dtype} {arr.shape}; launches {launches}")
-    if arr.shape != (2 * B, 256, 256, 3) or arr.dtype != np.uint8 or launches != want:
-        raise AssertionError(f"[fid] npz {arr.dtype} {arr.shape}, launches "
+        f"in {wall:.3f} s under the profiler: {len(labels) / wall:.2f} img/s "
+        f"end to end; npz {arr.dtype} {arr.shape}; the port's kernels in the "
+        f"device trace {ran}; launches counted on the host {launches}")
+    if arr.shape != (2 * B, 256, 256, 3) or arr.dtype != np.uint8 \
+            or ran != want_ran or launches != want:
+        raise AssertionError(f"[fid] npz {arr.dtype} {arr.shape}, device "
+                             f"kernels {ran} (want {want_ran}), launches "
                              f"{launches} (want {want})")
     del params, vae
     torch.cuda.empty_cache()
@@ -2488,21 +2585,31 @@ def phase_benchmark_cli():
 
 def phase_bench_serving():
     """tools/bench_serving's run at VAR-d30: 32 requests, bucket 16, W8A8 +
-    INT8 KV, uint8 delivery. Counts set to 0 before the run and read after:
-    two warm-up and two measured batches, each 300 INT8-KV attention, 1200
-    act_quantize, 10 int8 head matmul and 10 sampler launches."""
+    INT8 KV, uint8 delivery, under ``torch.profiler``. Counts set to 0
+    before the run and read after: two warm-up and two measured batches,
+    each 300 INT8-KV attention, 1200 act_quantize, 10 int8 head matmul and
+    10 sampler kernels in the device trace. The first batch captures the
+    bucket's graphs, the others replay them: the launch counters tick for
+    the blocks' kernels once, at the capture, and for the head's and the
+    sampler's a batch."""
     S = len(PNS)
     torch.cuda.synchronize()
     _reset_counts()
-    out = bench_serving.run(DEPTH, 2 * SERVE_B, SERVE_B, "w8a8-int8kv-u8")
-    torch.cuda.synchronize()
+    out, ran = _device_counts(
+        lambda: bench_serving.run(DEPTH, 2 * SERVE_B, SERVE_B, "w8a8-int8kv-u8"))
     launches = _read_counts()
     nb = 2 + out["batches"]
-    want = _want(attention_int8=nb * S * DEPTH, act_quantize=4 * nb * S * DEPTH,
+    want_ran = _want(attention_int8=nb * S * DEPTH,
+                     act_quantize=4 * nb * S * DEPTH, int8_matmul=nb * S,
+                     sampler=nb * S)
+    want = _want(attention_int8=S * DEPTH, act_quantize=4 * S * DEPTH,
                  int8_matmul=nb * S, sampler=nb * S)
-    log(f"[bench_serving] {json.dumps(out)}; launches {launches}")
-    if launches != want or out["batches"] != 2:
-        raise AssertionError(f"[bench_serving] launches {launches} != {want}")
+    log(f"[bench_serving] {json.dumps(out)} (under the profiler); the port's "
+        f"kernels in the device trace {ran}; launches counted on the host "
+        f"{launches}")
+    if ran != want_ran or launches != want or out["batches"] != 2:
+        raise AssertionError(f"[bench_serving] device kernels {ran} != "
+                             f"{want_ran} or launches {launches} != {want}")
     torch.cuda.empty_cache()
 
 
@@ -4221,8 +4328,9 @@ def highres_per_decode(cfg: VARConfig) -> dict:
 def _highres_phase(tag, cfg, run, batch, hw):
     """One configuration through its tool's ``run()`` (counts set to 0
     just before, read just after): the launch counts against depth x
-    scales times the decodes each mode ran, plus one conv3x3_s8 a
-    quantized site and all-int8 pixel-decoder call; seed 2 twice the same
+    scales times the decodes each mode ran (a decode that replays its
+    block stack's graphs counts only its head and sampler), plus one
+    conv3x3_s8 a quantized site and all-int8 pixel-decoder call; seed 2 twice the same
     ids and seed 3 others; every image finite, in [0, 1], (batch, 3, hw,
     hw); the ``generate_images`` image, where the tool made one, within
     1e-6 of the golden decoder's on the same seed's latent."""
@@ -4235,8 +4343,11 @@ def _highres_phase(tag, cfg, run, batch, hw):
     per = highres_per_decode(cfg)
     want = {}
     for mode in HIGHRES_MODES:
+        replays = out[mode]["replays"]
         for k, n in per[mode].items():
-            want[k] = want.get(k, 0) + n * out[mode]["decodes"]
+            eager = k in ("int8_matmul", "sampler")  # outside the graphs
+            want[k] = (want.get(k, 0) + n * (out[mode]["decodes"] - replays)
+                       + (n * replays if eager else 0))
         int8 = out[mode]["pixels"].get("nhwc-int8")
         if int8 is not None:
             want["conv3x3_s8"] = (want.get("conv3x3_s8", 0)
@@ -4311,7 +4422,8 @@ def phase_cache_past_2_31(name):
     the cache-kernel switch off, then the cache filled with NaN and the
     same decode with it on: bit-equal f_hat and ids, 360 fused writes
     (rows 7 and 8 write the layers past the 2^31-th element) and no
-    attention_kernel launch."""
+    attention_kernel launch, counted at the switched-on decode's capture
+    (the cache is reused, so the decodes replay CUDA graphs)."""
     vae_cfg = VQVAEConfig(patch_nums=PATCH_NUMS_512)
     params = init_var_params(D36_512, seed=0, device=DEV, dtype=torch.bfloat16)
     quant = init_vqvae_params(vae_cfg, seed=1, device=DEV)["quant"]
@@ -4337,12 +4449,12 @@ def phase_cache_past_2_31(name):
     cache.v.fill_(float("nan"))
     set_cache_kernel(True)
     try:
-        decode()
+        _reset_counts()
+        decode()  # captures the switched-on graphs: the counters tick here
+        counts = _read_counts()
         cache.k.fill_(float("nan"))
         cache.v.fill_(float("nan"))
-        _reset_counts()
         f_on, ids_on, on_ms = decode()
-        counts = _read_counts()
     finally:
         set_cache_kernel(False)
     S, n_att = D36_512.num_scales, D36_512.depth * D36_512.num_scales

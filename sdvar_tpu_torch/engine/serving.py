@@ -121,6 +121,12 @@ class GenerationServer:
         rid = srv.submit(label=207, seed=42)
         result = srv.get(rid, timeout=60)
         srv.stop()
+
+    On a card and with no mesh, each bucket's decode into its reused KV
+    cache replays the scales' block stacks from CUDA graphs, captured at
+    the bucket's first batch (``engine.decode.ScaleGraphs``). The first
+    capture in a process sets glibc's malloc top pad to 64 MiB for the
+    whole process, the caller's threads included (``decode._keep_host_heaps``).
     """
 
     def __init__(

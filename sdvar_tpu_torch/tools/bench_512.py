@@ -117,7 +117,10 @@ def run_modes(tag: str, var_cfg: VARConfig, vae_cfg: VQVAEConfig,
                 torch.bfloat16, return_ids=True, kv_mode=kv_mode, cache=cache,
                 return_cache=True, device=dev)
 
-        row = {"batch": batch, "card": card, "decodes": repeats + 2 + entry}
+        # the decodes into the returned cache after the first capture the
+        # block stack's CUDA graphs and replay them
+        row = {"batch": batch, "card": card, "decodes": repeats + 2 + entry,
+               "replays": repeats}
         image = None
         if entry:
             image, row["entry_s"] = _timed(lambda: generate_images(
