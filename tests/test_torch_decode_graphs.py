@@ -446,3 +446,43 @@ def test_capture_spans_under_the_profiler(card_stack):
         assert names.count("sdvar.decode.replay") == S
         want_f, want_ids = _card_decode(card_stack, labels, seed)
         assert torch.equal(ids, want_ids) and torch.equal(f_hat, want_f)
+
+
+@pytest.mark.gpu
+def test_graphed_d36_512_decode_is_the_eager_decode():
+    """VAR-d36 512px at its published widths (shared AdaLN, L 2,240) at
+    the FID cell's batch of 16 (32 CFG rows; a K cache of 5.95e9
+    elements): the first decode into a reused cache (captured) and a
+    second with other labels and seeds (replayed) equal the eager decode
+    bit for bit. The shared AdaLN's gammas are drawn of order 0.5 so that
+    every block takes part."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from sdvar_tpu_torch.config import PATCH_NUMS_512
+    dev = torch.device("cuda")
+    cfg = VARConfig(depth=36, patch_nums=PATCH_NUMS_512, shared_aln=True)
+    vae = VQVAEConfig(patch_nums=PATCH_NUMS_512)
+    params = init_var_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(1)
+    C = cfg.embed_dim
+    params["shared_ada_lin"]["b"][: 2 * C] = 0.5 * torch.randn(
+        2 * C, generator=g, device=dev)
+    quant = VQ.init_vqvae_params(vae, seed=1, device=dev, eini=1.0)["quant"]
+    cache = KVCache.create(cfg, 32, device=dev)
+    assert cache.k.numel() > 2 ** 32
+
+    def decode(labels, seed, cache=None):
+        out = D.decode_all_scales(cfg, vae, params, quant,
+                                  torch.as_tensor(labels), seed, GPU_SAMP,
+                                  torch.bfloat16, return_ids=True,
+                                  cache=cache, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    for labels, seed in ([list(range(16)), 11],
+                         [[999 - 7 * i for i in range(16)], 2 ** 31 + 5]):
+        f_hat, ids = decode(labels, seed, cache)
+        want_f, want_ids = decode(labels, seed)
+        assert torch.equal(ids, want_ids) and torch.equal(f_hat, want_f)
+    assert len(next(iter(cache._scale_graphs.values())).scales) \
+        == cfg.num_scales
